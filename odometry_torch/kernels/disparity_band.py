@@ -1,0 +1,133 @@
+"""Banded SSD stereo search: the CUDA kernel's wrapper and its plain version.
+
+:func:`disparity_band` launches ``csrc/disparity_band.cu``, the port of the
+TPU kernel ``odometry_tpu/kernels/disparity_pallas.py:_band_kernel``.
+:func:`disparity_band_plain` is the same contract in plain PyTorch: the
+row-chunked norm expansion of the reference's XLA path
+(``odometry_tpu/kernels/disparity.py:191-238``). The CPU path and the tests
+use the plain version; on the card it serves only as the comparison.
+
+Both return ``(best, match, rmatch, second)`` (see
+:func:`odometry_torch.kernels.disparity.disparity_winner_maps`). The two
+compute the SSD differently (direct sum of squares vs norm expansion), so
+they may pick different winners where two candidates' SSDs are within the
+norm expansion's float32 rounding band.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+BIG = 1e10
+_ROW_CHUNK = 8  # rows per (rows, W, W) cost volume of the plain version
+
+# Kernel launches made by disparity_band(); tests and chip_smoke.py read it to
+# show a run went through the kernel.
+LAUNCHES = 0
+
+
+def _min_d(min_disparity: int | None) -> int:
+    return max(1, min_disparity or 1)
+
+
+def disparity_band_plain(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
+                         min_disparity: int | None, max_disparity: int | None, lr: bool,
+                         second_best: bool = False, second_excl: int = 2):
+    """Plain PyTorch winner maps (``max_disparity=None`` = full search).
+
+    Per chunk of _ROW_CHUNK rows, one (W, 8) x (8, W) product per row scores every
+    (x, xr) pair; masked pairs score 1e10; ``torch.argmin`` takes the first
+    index on ties, the strict-< scan rule of the reference.
+    """
+    from odometry_torch.kernels.disparity import pattern_stack
+
+    H, W = left_s.shape
+    dev = left_s.device
+    PL = pattern_stack(left_s)
+    PR = pattern_stack(right_s)
+    ln = torch.sum(PL * PL, dim=0)
+    rn = torch.sum(PR * PR, dim=0)
+    xs = torch.arange(W, device=dev)[:, None]
+    xr = torch.arange(W, device=dev)[None, :]
+    d = xs - xr
+    cand_ok = (xr >= boundary) & (d >= _min_d(min_disparity))
+    if max_disparity is not None:
+        cand_ok = cand_ok & (d <= max_disparity)
+    big = torch.tensor(BIG, dtype=torch.float32, device=dev)
+
+    best = torch.empty((H, W), dtype=torch.float32, device=dev)
+    match = torch.empty((H, W), dtype=torch.int32, device=dev)
+    rmatch = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    second = torch.full((H, W), BIG, dtype=torch.float32, device=dev)
+    for r0 in range(0, H, _ROW_CHUNK):
+        r1 = min(H, r0 + _ROW_CHUNK)
+        cross = torch.bmm(PL[:, r0:r1].permute(1, 2, 0), PR[:, r0:r1].permute(1, 0, 2))
+        ssd = ln[r0:r1, :, None] + rn[r0:r1, None, :] - 2.0 * cross
+        ssd = torch.where(cand_ok, ssd, big)
+        best[r0:r1] = torch.amin(ssd, dim=2)
+        m = torch.argmin(ssd, dim=2)
+        match[r0:r1] = m.to(torch.int32)
+        if lr:
+            rmatch[r0:r1] = torch.argmin(ssd, dim=1).to(torch.int32)
+        if second_best:
+            near = torch.abs(xr[None] - m[:, :, None]) <= second_excl
+            second[r0:r1] = torch.amin(torch.where(near, big, ssd), dim=2)
+    return best, match, rmatch, second
+
+
+def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
+                   min_disparity: int | None, max_disparity: int, lr: bool,
+                   second_best: bool = False, second_excl: int = 2):
+    """Launch the CUDA band kernel on the current stream (no synchronise).
+
+    `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
+    images). Raises on anything the kernel does not take, or if the launch
+    is refused.
+    """
+    global LAUNCHES
+    if not (left_s.is_cuda and right_s.is_cuda):
+        raise ValueError("disparity_band: inputs must be CUDA tensors")
+    if left_s.device != right_s.device:
+        raise ValueError("disparity_band: inputs on different devices")
+    if left_s.dtype != torch.float32 or right_s.dtype != torch.float32:
+        raise ValueError("disparity_band: inputs must be float32")
+    if left_s.dim() != 2 or left_s.shape != right_s.shape:
+        raise ValueError(f"disparity_band: shapes {tuple(left_s.shape)} / "
+                         f"{tuple(right_s.shape)} are not one (H, W)")
+    if not (left_s.is_contiguous() and right_s.is_contiguous()):
+        raise ValueError("disparity_band: inputs must be contiguous")
+    if max_disparity is None:
+        raise ValueError("disparity_band: max_disparity is required")
+    min_d = _min_d(min_disparity)
+    if max_disparity < min_d:
+        raise ValueError(f"disparity_band: empty band [{min_d}, {max_disparity}]")
+
+    from odometry_torch.kernels import _build
+
+    lib = _build.load("disparity_band")
+    fn = lib.disparity_band_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+    H, W = left_s.shape
+    dev = left_s.device
+    best = torch.empty((H, W), dtype=torch.float32, device=dev)
+    match = torch.empty((H, W), dtype=torch.int32, device=dev)
+    rmatch = torch.empty((H, W), dtype=torch.int32, device=dev) if lr else None
+    second = torch.empty((H, W), dtype=torch.float32, device=dev) if second_best else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(left_s.data_ptr(), right_s.data_ptr(), best.data_ptr(), match.data_ptr(),
+                ptr(rmatch), ptr(second), H, W, int(boundary), min_d, int(max_disparity),
+                int(second_excl), stream)
+    if rc != 0:
+        raise RuntimeError(f"disparity_band kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    if rmatch is None:
+        rmatch = torch.zeros_like(match)
+    if second is None:
+        second = torch.full_like(best, BIG)
+    return best, match, rmatch, second
