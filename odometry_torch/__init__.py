@@ -3,9 +3,11 @@
 The JAX package ``odometry_tpu`` is the reference; this package keeps its
 module paths and function names so every function has an obvious
 counterpart (``odometry_torch/tracking/tracker.py`` <->
-``odometry_tpu/tracking/tracker.py``). Plain tensor code is PyTorch; the one
-Pallas kernel on the fast_config path (the banded SSD search) is a CUDA C++
-kernel for sm_90a (``csrc/disparity_band.cu``), built at first use.
+``odometry_tpu/tracking/tracker.py``). Plain tensor code is PyTorch; the
+Pallas kernels on the ported paths are CUDA C++ kernels for sm_90a, built at
+first use: the banded SSD search (``csrc/disparity_band.cu``, fast_config)
+and the full-search SSD (``csrc/disparity_full.cu``, kitti_config and
+accurate_config). The package imports nothing of ``odometry_tpu``.
 
 Precision: the reference contracts every matmul at ``Precision.HIGHEST``
 (``kernels/points.py:25``, ``kernels/disparity.py:31``,

@@ -4,4 +4,5 @@ from odometry_torch.camera.pinhole import (  # noqa: F401
     intrinsic_pyramid,
     level_intrinsics,
     project,
+    warp_points,
 )

@@ -62,3 +62,19 @@ def project(cam: Pinhole, X: torch.Tensor, Y: torch.Tensor, Z: torch.Tensor):
     u = cam.fx * X / safe_z + cam.cx
     v = cam.fy * Y / safe_z + cam.cy
     return u, v
+
+
+def warp_points(cam: Pinhole, T: torch.Tensor, X, Y, Z, height: int, width: int):
+    """Rigidly transform camera-frame points and project into the same camera
+    (``WarpPixel``, ``image_processing_global.h:42-59``): returns (u, v, Zw,
+    valid), valid combining the z > 0 check and the floor-in-bounds check."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    Xw = R[..., 0, 0] * X + R[..., 0, 1] * Y + R[..., 0, 2] * Z + t[..., 0]
+    Yw = R[..., 1, 0] * X + R[..., 1, 1] * Y + R[..., 1, 2] * Z + t[..., 1]
+    Zw = R[..., 2, 0] * X + R[..., 2, 1] * Y + R[..., 2, 2] * Z + t[..., 2]
+    u, v = project(cam, Xw, Yw, Zw)
+    uf = torch.floor(u)
+    vf = torch.floor(v)
+    valid = (Zw > 0.0) & (uf >= 0.0) & (vf >= 0.0) & (uf < width) & (vf < height)
+    return u, v, Zw, valid

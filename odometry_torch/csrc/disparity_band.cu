@@ -15,15 +15,17 @@
 //   match[y, x]  =  smallest xr reaching best (strict-< ascending scan; 0 if none)
 //   rmatch[y, xr] = smallest x reaching column xr's minimum (0 if no pair)
 //   second[y, x] =  min SSD over x's pairs with |xr - match| > second_excl
-// Forward and reverse passes call the same ssd8() with the left value first,
-// so a pair scores bit-identically in both.
+// Forward and reverse passes call the same ssd8() (csrc/ssd8.cuh) with the
+// left value first, so a pair scores bit-identically in both, and in the
+// full-search kernel.
 //
-// What bounds it on the H100: not bytes. One call reads the two images
-// (376 x 1241 x 4 B x 2, about 3.7 MB) and writes four maps, microseconds of
-// HBM time; the arithmetic is about 1.2 GFLOP at the KITTI band [12, 192],
-// a few percent of a millisecond of the card's float32 rate. What is left is
-// latency and occupancy: how quickly enough blocks start and stream their
-// candidate loops. The design: one block per (row, 128-column tile, pass),
+// What bounds it on the H100: operations. One call reads the two images
+// (376 x 1241 x 4 B x 2, about 3.7 MB) and writes up to four maps, about
+// 11 MB in all, 3 us at 3.35 TB/s; the KITTI band [12, 192] has about 77.2 M
+// (x, xr) pairs of about 24 float32 operations each (an FMA counted as two),
+// about 1.85 GFLOP, 28 us at the card's 67 TFLOP/s outside the tensor cores.
+// The reverse pass scores every pair a second time. Beyond that, latency and
+// occupancy: how quickly enough blocks start and stream their candidate loops. The design: one block per (row, 128-column tile, pass),
 // about 7,500 blocks at KITTI size; each block stages the five rows it needs
 // of both images (the tile plus the band and a 2-pixel halo, under 10 KB for
 // the KITTI band) in shared memory with zero fill at the edges, then each
@@ -33,49 +35,18 @@
 
 #include <cuda_runtime.h>
 
+#include "ssd8.cuh"
+
 namespace {
 
+using ssd8_detail::kBig;
+using ssd8_detail::kHalo;
+using ssd8_detail::kRows;
+using ssd8_detail::load8;
+using ssd8_detail::ssd8;
+using ssd8_detail::stage;
+
 constexpr int kTile = 128;  // query columns per block, one thread each
-constexpr int kHalo = 2;    // pattern reach in x and in y
-constexpr int kRows = 5;    // staged rows y-2 .. y+2
-constexpr float kBig = 1e10f;
-
-// The 8 pattern values at staged column c; rows are `stride` floats apart,
-// row 0 is y-2. Offsets (dy, dx) in the reference order:
-// (-2,0) (-1,-1) (-1,1) (0,-2) (0,0) (0,2) (1,-1) (2,0).
-__device__ __forceinline__ void load8(const float* s, int stride, int c, float v[8]) {
-  v[0] = s[0 * stride + c];
-  v[1] = s[1 * stride + c - 1];
-  v[2] = s[1 * stride + c + 1];
-  v[3] = s[2 * stride + c - 2];
-  v[4] = s[2 * stride + c];
-  v[5] = s[2 * stride + c + 2];
-  v[6] = s[3 * stride + c - 1];
-  v[7] = s[4 * stride + c];
-}
-
-// SSD of left pattern `l` against right pattern `r`, in a fixed order of
-// explicitly rounded operations (no contraction choices left to the compiler).
-__device__ __forceinline__ float ssd8(const float l[8], const float r[8]) {
-  float d = __fsub_rn(l[0], r[0]);
-  float s = __fmul_rn(d, d);
-#pragma unroll
-  for (int k = 1; k < 8; ++k) {
-    d = __fsub_rn(l[k], r[k]);
-    s = __fmaf_rn(d, d, s);
-  }
-  return s;
-}
-
-__device__ __forceinline__ void stage(float* dst, int width, const float* img, int H, int W,
-                                      int y, int col0) {
-  for (int i = threadIdx.x; i < kRows * width; i += blockDim.x) {
-    const int r = i / width;
-    const int gy = y - kHalo + r;
-    const int gx = col0 + (i - r * width);
-    dst[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? img[gy * W + gx] : 0.0f;
-  }
-}
 
 // blockIdx.z == 0: forward pass (query = left x, candidates = right xr = x - d).
 // blockIdx.z == 1: reverse pass (query = right xr, candidates = left x = xr + d).

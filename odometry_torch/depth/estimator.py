@@ -1,15 +1,15 @@
 """Stereo semi-dense inverse-depth frontend, point-lane path (port of
 ``depth/estimator.py``; reference ``DepthEstimator``, ``depth_estimate.cpp``).
 
-select -> banded SSD search -> blocked extraction -> lane finalize ->
-inverse-depth refinement -> filter -> scatter to dense maps.
+select -> SSD search -> extraction -> lane finalize -> inverse-depth
+refinement -> filter -> scatter to dense maps. :func:`refine_depth` is the
+dense (H, W) form of the refinement (the reference's, not on its
+``compute_depth`` path).
 
 Index hazards of the port: JAX clamps out-of-bounds gathers and drops
 out-of-bounds scatter updates, torch raises (or asserts on the device).
 Blocked extraction leaves padded lanes with ``ys >= H`` or ``xs >= W``; their
 gather indices are clamped here and their scatter updates are masked out.
-
-The dense ``refine_depth`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -93,6 +93,46 @@ def _refine_loop(eval_system, d0: torch.Tensor, cfg: DepthConfig, clamp=None):
         it += 1
         active = bool(~(break_bad | break_good))
     return current, resid, torch.tensor(it, dtype=torch.int32, device=dev), err_now, escaped
+
+
+def _eval_system(d: torch.Tensor, left: torch.Tensor, right: torch.Tensor, mask: torch.Tensor,
+                 tx_fx: float, huber_delta: float, interp: str = "floor"):
+    """Reference ``ComputeResidualJacobian`` (depth_estimate.cpp:200-242),
+    dense: interp "floor" is the reference's integer warp, "bilinear" (and
+    "mm", the same semantics here) sample the right image at the sub-pixel
+    warp. Returns (jtwj, b, resid, err)."""
+    H, W = left.shape
+    dev = left.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    ys = torch.arange(H, device=dev)[:, None].expand(H, W)
+    warped_xf = xs - tx_fx * d
+    warped_x = torch.floor(torch.clamp(warped_xf, -2.0, W + 2.0)).long()
+    in_bounds = (warped_x >= 2) & (warped_x <= W - 2) & mask
+    wx = torch.clamp(warped_x, 1, W - 2)
+    if interp == "floor":
+        r = left - clip_gather_2d(right, ys, wx)
+        g = tx_fx * 0.5 * (clip_gather_2d(right, ys, wx + 1) - clip_gather_2d(right, ys, wx - 1))
+    elif interp in ("bilinear", "mm"):
+        uw = torch.clamp(warped_xf, 1.0, W - 2.0)
+        yf = ys.float()
+        r = left - sample_bilinear(right, uw, yf)
+        g = tx_fx * 0.5 * (sample_bilinear(right, uw + 1.0, yf)
+                           - sample_bilinear(right, uw - 1.0, yf))
+    else:
+        raise ValueError(f"unknown interp mode {interp!r}")
+    return _huber_system(r, g, in_bounds, huber_delta)
+
+
+def refine_depth(left: torch.Tensor, right: torch.Tensor, inv_depth0: torch.Tensor,
+                 mask: torch.Tensor, cam: CameraConfig, cfg: DepthConfig):
+    """Dense diagonal per-pixel inverse-depth LM (``DepthOptimization``,
+    depth_estimate.cpp:141-168) over the (H, W) map. Returns (refined,
+    resid, iters, cost)."""
+    tx_fx = cam.baseline * cam.fx
+    current, resid, it, err, _ = _refine_loop(
+        lambda d: _eval_system(d, left, right, mask, tx_fx, cfg.huber_delta, cfg.interp),
+        inv_depth0, cfg)
+    return current, resid, it, err
 
 
 def refine_depth_points(left: torch.Tensor, right: torch.Tensor, pts: PointSet,
@@ -188,6 +228,21 @@ def _scatter(H, W, ys, xs, vals, keep, reduce):
     return flat.reshape(H, W)
 
 
+def search_band(cam: CameraConfig, cfg: DepthConfig) -> tuple[int | None, int | None]:
+    """(min_disparity, max_disparity) of the SSD search (None = unbounded).
+    With ``range_limited_search`` the band is the one implied by [min_depth,
+    max_depth], clamped to the image width (estimator.py:443-452 of the
+    reference): fast_config's at KITTI size is [12, 192], accurate_config's
+    [12, 1241]."""
+    max_disp = cfg.max_disparity
+    min_disp = None
+    if cfg.range_limited_search:
+        band_max = min(int(cam.fx * cam.baseline / cfg.min_depth) + 1, cam.width)
+        max_disp = band_max if max_disp is None else min(max_disp, band_max)
+        min_disp = max(1, int(cam.fx * cam.baseline / cfg.max_depth))
+    return min_disp, max_disp
+
+
 def compute_depth(left: torch.Tensor, right: torch.Tensor, cam: CameraConfig,
                   cfg: DepthConfig) -> DepthResult:
     """Full frontend, equivalent of ``DepthEstimator::ComputeDepth`` (:33-78)."""
@@ -200,12 +255,7 @@ def compute_depth(left: torch.Tensor, right: torch.Tensor, cam: CameraConfig,
                         max_points_per_block=cfg.max_points_per_block,
                         min_points_per_block=cfg.min_points_per_block)
 
-    max_disp = cfg.max_disparity
-    min_disp = None
-    if cfg.range_limited_search:
-        band_max = min(int(cam.fx * cam.baseline / cfg.min_depth) + 1, cam.width)
-        max_disp = band_max if max_disp is None else min(max_disp, band_max)
-        min_disp = max(1, int(cam.fx * cam.baseline / cfg.max_depth))
+    min_disp, max_disp = search_band(cam, cfg)
     best, match, rmatch, second = disparity_winner_maps(
         left_s, right_s, boundary=cfg.boundary, max_disparity=max_disp,
         min_disparity=min_disp, lr_check=cfg.lr_check, second_best=cfg.ratio_test > 0,

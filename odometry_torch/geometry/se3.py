@@ -160,6 +160,21 @@ def se3_identity(batch=(), dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch) + (4, 4)).clone()
 
 
+def se3_adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3) for the [v, w] twist ordering: (..., 6, 6)."""
+    R, t = mat_to_rt(T)
+    tR = hat(t) @ R
+    top = torch.cat([R, tR], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
+    R, t = mat_to_rt(T)
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
 def rotation_angles_xyz(R: torch.Tensor) -> torch.Tensor:
     """Per-axis rotation angles [angleX, angleY, angleZ] of the keyframe
     criterion (``Sophus::SO3::angleX/Y/Z``, so3.hpp:127-154)."""

@@ -2,18 +2,21 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled for sm_90a into ``build/odometry_torch/lib<name>-<hash>.so`` at the
-repository root, keyed by a hash of the source and the flags, and loaded
-with ``ctypes``. Nothing is built at import: the first launch builds.
+repository root, keyed by a hash of the source, the shared headers and the
+flags, and loaded with ``ctypes``. Nothing is built at import: the first
+launch builds (``build_all`` builds several sources at once).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -35,11 +38,17 @@ def _nvcc() -> str:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source exists.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``.log``.
+    The key hashes the source, every header of ``csrc/`` (the kernels share
+    ``ssd8.cuh``) and the flags, so an edited header never loads a stale
+    library. The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``.log``.
     """
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{key}.so"
     if out.exists():
         return out
@@ -52,6 +61,19 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_all(names) -> dict:
+    """Build several sources at once, one nvcc process each, all started
+    together; returns {name: (library path, seconds its build took)}."""
+
+    def timed(name):
+        t0 = time.perf_counter()
+        path = build(name)
+        return name, (path, time.perf_counter() - t0)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(pool.map(timed, names))
 
 
 @functools.cache

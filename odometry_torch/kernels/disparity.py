@@ -6,10 +6,12 @@
   ``||P_L||^2 + ||P_R||^2 - 2 P_L.P_R`` of the reference's XLA path
   (``disparity.py:191-238``), in
   :func:`odometry_torch.kernels.disparity_band.disparity_band_plain`;
-* CUDA tensors with a finite `max_disparity` run the hand-written band kernel
-  (``csrc/disparity_band.cu``);
-* CUDA tensors with ``max_disparity=None`` (the full search of
-  ``kitti_config``/``accurate_config``) raise: that kernel is not ported yet.
+* CUDA tensors go to a hand-written kernel chosen as the reference chooses
+  its Pallas kernel (:func:`_route`): a narrow band to the band kernel
+  (``csrc/disparity_band.cu``), the full search and any wider band to the
+  full-search kernel (``csrc/disparity_full.cu``), the band applied as a
+  limit on its scan. So fast_config launches only the band kernel, and
+  ``kitti_config``/``accurate_config`` only the full-search kernel.
 
 The plain version never runs silently on the card.
 
@@ -24,6 +26,20 @@ from typing import NamedTuple
 import torch
 
 PATTERN_OFFSETS = ((-2, 0), (-1, -1), (-1, 1), (0, -2), (0, 0), (0, 2), (1, -1), (2, 0))
+
+# The widest band (rounded up to 128 columns) that goes to the band kernel.
+# This mirrors the reference's routing (``band_fits_vmem``,
+# ``disparity_pallas.py:61-66``: the TPU kernel's VMEM slab), so that each
+# preset launches the counterpart of the kernel the reference launches; it is
+# not a limit of this card.
+MAX_BAND_P = 256
+
+
+def _route(max_disparity: int | None) -> str:
+    """"band" or "full": which kernel a CUDA search with this cap takes."""
+    if max_disparity is not None and -(-max_disparity // 128) * 128 <= MAX_BAND_P:
+        return "band"
+    return "full"
 
 
 def pattern_stack(img: torch.Tensor) -> torch.Tensor:
@@ -56,18 +72,16 @@ def disparity_winner_maps(left: torch.Tensor, right: torch.Tensor, *, boundary: 
     pairs (0 for columns with no pair; zeros when `lr_check` is False);
     second[y, x] = best SSD outside +-`second_excl` of the winner (1e10 fill).
     """
-    from odometry_torch.kernels import disparity_band
+    from odometry_torch.kernels import disparity_band, disparity_full
 
     kw = dict(boundary=boundary, min_disparity=min_disparity,
               max_disparity=max_disparity, lr=lr_check,
               second_best=second_best, second_excl=second_excl)
     if left.device.type == "cpu":
         return disparity_band.disparity_band_plain(left, right, **kw)
-    if max_disparity is None:
-        raise NotImplementedError(
-            "full-search disparity (max_disparity=None) on CUDA needs the "
-            "full-search kernel, ROADMAP B2, which is not ported yet")
-    return disparity_band.disparity_band(left, right, **kw)
+    if _route(max_disparity) == "band":
+        return disparity_band.disparity_band(left, right, **kw)
+    return disparity_full.disparity_full(left, right, **kw)
 
 
 def _finalize(left, best, match, rmatch, select_mask, *, fx, baseline, boundary,
@@ -99,3 +113,42 @@ def disparity_search(left: torch.Tensor, right: torch.Tensor, select_mask: torch
     )
     return _finalize(left, best, match, rmatch, select_mask, fx=fx, baseline=baseline,
                      boundary=boundary, ssd_th=ssd_th, lr_check=lr_check, lr_tol=lr_tol)
+
+
+def disparity_search_reference(left, right, select_mask, *, fx: float, baseline: float,
+                               boundary: int = 4, ssd_th: float = 900.0):
+    """Slow direct-SSD golden model (no matmul expansion) for parity tests: the
+    reference's numpy scan (``kernels/disparity.py:263-305``), copied as it
+    is. Takes and returns numpy arrays: (disp, inv_depth, matched, best)."""
+    import numpy as np
+
+    left = np.asarray(left)
+    right = np.asarray(right)
+    mask = np.asarray(select_mask)
+    H, W = left.shape
+    disp = np.zeros((H, W), np.float32)
+    inv_depth = np.zeros((H, W), np.float32)
+    matched = np.zeros((H, W), bool)
+    best_map = np.full((H, W), 1e10, np.float32)
+
+    def pat(img, y, x):
+        return np.array([img[y + dy, x + dx] for dy, dx in PATTERN_OFFSETS], np.float32)
+
+    for y in range(boundary, H - boundary):
+        for x in range(boundary, W - boundary):
+            if not mask[y, x]:
+                continue
+            pl = pat(left, y, x)
+            smallest = 1e10
+            match = -1
+            for rx in range(boundary, x):
+                ssd = float(np.sum((pl - pat(right, y, rx)) ** 2))
+                if ssd < smallest:
+                    smallest = ssd
+                    match = rx
+            best_map[y, x] = smallest
+            if smallest <= ssd_th:
+                matched[y, x] = True
+                disp[y, x] = abs(x - match)
+                inv_depth[y, x] = disp[y, x] / (fx * baseline)
+    return disp, inv_depth, matched, best_map

@@ -4,8 +4,11 @@
 TPU kernel ``odometry_tpu/kernels/disparity_pallas.py:_band_kernel``.
 :func:`disparity_band_plain` is the same contract in plain PyTorch: the
 row-chunked norm expansion of the reference's XLA path
-(``odometry_tpu/kernels/disparity.py:191-238``). The CPU path and the tests
+(``odometry_tpu/kernels/disparity.py:191-238``); with ``max_disparity=None``
+it is also the full-search kernel's plain version
+(:mod:`odometry_torch.kernels.disparity_full`). The CPU path and the tests
 use the plain version; on the card it serves only as the comparison.
+:func:`launch` launches either kernel (they share one C signature).
 
 Both return ``(best, match, rmatch, second)`` (see
 :func:`odometry_torch.kernels.disparity.disparity_winner_maps`). The two
@@ -77,37 +80,33 @@ def disparity_band_plain(left_s: torch.Tensor, right_s: torch.Tensor, *, boundar
     return best, match, rmatch, second
 
 
-def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
-                   min_disparity: int | None, max_disparity: int, lr: bool,
-                   second_best: bool = False, second_excl: int = 2):
-    """Launch the CUDA band kernel on the current stream (no synchronise).
-
-    `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images). Raises on anything the kernel does not take, or if the launch
-    is refused.
-    """
-    global LAUNCHES
+def check_images(name: str, left_s: torch.Tensor, right_s: torch.Tensor):
+    """Raise unless `left_s`/`right_s` are one (H, W) float32 contiguous pair
+    of CUDA tensors on one device: what the winner kernels take."""
     if not (left_s.is_cuda and right_s.is_cuda):
-        raise ValueError("disparity_band: inputs must be CUDA tensors")
+        raise ValueError(f"{name}: inputs must be CUDA tensors")
     if left_s.device != right_s.device:
-        raise ValueError("disparity_band: inputs on different devices")
+        raise ValueError(f"{name}: inputs on different devices")
     if left_s.dtype != torch.float32 or right_s.dtype != torch.float32:
-        raise ValueError("disparity_band: inputs must be float32")
+        raise ValueError(f"{name}: inputs must be float32")
     if left_s.dim() != 2 or left_s.shape != right_s.shape:
-        raise ValueError(f"disparity_band: shapes {tuple(left_s.shape)} / "
+        raise ValueError(f"{name}: shapes {tuple(left_s.shape)} / "
                          f"{tuple(right_s.shape)} are not one (H, W)")
     if not (left_s.is_contiguous() and right_s.is_contiguous()):
-        raise ValueError("disparity_band: inputs must be contiguous")
-    if max_disparity is None:
-        raise ValueError("disparity_band: max_disparity is required")
-    min_d = _min_d(min_disparity)
-    if max_disparity < min_d:
-        raise ValueError(f"disparity_band: empty band [{min_d}, {max_disparity}]")
+        raise ValueError(f"{name}: inputs must be contiguous")
 
+
+def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
+           min_d: int, max_d: int, lr: bool, second_best: bool, second_excl: int):
+    """Launch ``<name>_launch`` of ``csrc/<name>.cu`` on the current stream
+    (no synchronise) and return its ``(best, match, rmatch, second)``.
+
+    The band and the full-search kernels share this C signature. Inputs are
+    checked by the caller; raises if the launch is refused.
+    """
     from odometry_torch.kernels import _build
 
-    lib = _build.load("disparity_band")
-    fn = lib.disparity_band_launch
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -121,13 +120,34 @@ def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(left_s.data_ptr(), right_s.data_ptr(), best.data_ptr(), match.data_ptr(),
-                ptr(rmatch), ptr(second), H, W, int(boundary), min_d, int(max_disparity),
+                ptr(rmatch), ptr(second), H, W, int(boundary), int(min_d), int(max_d),
                 int(second_excl), stream)
     if rc != 0:
-        raise RuntimeError(f"disparity_band kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     if rmatch is None:
         rmatch = torch.zeros_like(match)
     if second is None:
         second = torch.full_like(best, BIG)
     return best, match, rmatch, second
+
+
+def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
+                   min_disparity: int | None, max_disparity: int, lr: bool,
+                   second_best: bool = False, second_excl: int = 2):
+    """Launch the CUDA band kernel on the current stream (no synchronise).
+
+    `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
+    images). Raises on anything the kernel does not take, or if the launch
+    is refused.
+    """
+    global LAUNCHES
+    check_images("disparity_band", left_s, right_s)
+    if max_disparity is None:
+        raise ValueError("disparity_band: max_disparity is required")
+    min_d = _min_d(min_disparity)
+    if max_disparity < min_d:
+        raise ValueError(f"disparity_band: empty band [{min_d}, {max_disparity}]")
+    out = launch("disparity_band", left_s, right_s, boundary=boundary, min_d=min_d,
+                 max_d=max_disparity, lr=lr, second_best=second_best, second_excl=second_excl)
+    LAUNCHES += 1
+    return out

@@ -10,8 +10,10 @@ Lazy depth (``depth_every_frame=False``): the reference's ``lax.cond`` on the
 keyframe candidate flag becomes one host branch per frame. A skipped frame
 reports zero-filled depth products of the same shapes and ``ok=True``.
 
-Only the point engine is ported; the dense engine waits for
-``kernels/photometric.py``.
+Two tracking engines, as in the reference: ``engine="points"`` tracks
+against point lists extracted once per keyframe (``kf_track``), and
+``engine="dense"`` against every pixel of the keyframe pyramids
+(``kf_track=()``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,12 @@ from odometry_torch.depth.estimator import DepthResult, compute_depth
 from odometry_torch.device import resolve_device
 from odometry_torch.geometry import rotation_angles_xyz, se3_compose, se3_identity, se3_inverse
 from odometry_torch.image.pyramid import depth_pyramid, gaussian_image_pyramid
-from odometry_torch.tracking.tracker import TrackResult, prepare_keyframe, solve_pose_points
+from odometry_torch.tracking.tracker import (
+    TrackResult,
+    prepare_keyframe,
+    solve_pose,
+    solve_pose_points,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +43,7 @@ class OdometryState:
 
     kf_pyr: Tuple[torch.Tensor, ...]  # keyframe image pyramid (level 0 first)
     kf_dpyr: Tuple[torch.Tensor, ...]  # keyframe inverse-depth pyramid
-    kf_track: tuple  # per-level KeyframeLevel
+    kf_track: tuple  # engine="points": per-level KeyframeLevel; else ()
     kf_valid: torch.Tensor  # (H, W) keyframe depth validity mask
     kf_pose: torch.Tensor  # (4, 4) keyframe absolute pose (cam-to-world)
     pose_init: torch.Tensor  # (4, 4) tracker warm start
@@ -72,11 +79,11 @@ def _cam(cfg: PipelineConfig) -> Pinhole:
     return Pinhole.create(c.fx, c.fy, c.cx, c.cy)
 
 
-def _check_engine(cfg: PipelineConfig):
-    if cfg.tracker.engine != "points":
-        raise NotImplementedError(
-            "only the point engine is ported; the dense engine needs "
-            "kernels/photometric.py (ROADMAP A8)")
+def _keyframe_track(pyr, dpyr, cfg: PipelineConfig) -> tuple:
+    """The point engine's per-level point lists; () for the dense engine."""
+    if cfg.tracker.engine == "points":
+        return prepare_keyframe(pyr, dpyr, cfg.tracker)
+    return ()
 
 
 def init(left, right, cfg: PipelineConfig, init_pose=None, *,
@@ -85,7 +92,6 @@ def init(left, right, cfg: PipelineConfig, init_pose=None, *,
 
     `left`/`right` are (H, W) images (numpy or tensors), moved to `device`.
     """
-    _check_engine(cfg)
     dev = resolve_device(device)
     left = torch.as_tensor(left, dtype=torch.float32, device=dev)
     right = torch.as_tensor(right, dtype=torch.float32, device=dev)
@@ -99,7 +105,7 @@ def init(left, right, cfg: PipelineConfig, init_pose=None, *,
     state = OdometryState(
         kf_pyr=pyr,
         kf_dpyr=dpyr,
-        kf_track=prepare_keyframe(pyr, dpyr, cfg.tracker),
+        kf_track=_keyframe_track(pyr, dpyr, cfg),
         kf_valid=dres.valid,
         kf_pose=pose0,
         pose_init=se3_identity(device=dev),
@@ -126,14 +132,17 @@ def step(state: OdometryState, left: torch.Tensor, right: torch.Tensor,
          cfg: PipelineConfig) -> tuple[OdometryState, StepOutput]:
     """One full odometry frame (``run_odometry_kitti_offline.cpp:198-271``).
     `left`/`right` lie on the state's device."""
-    _check_engine(cfg)
     n = cfg.tracker.num_levels
     cam = _cam(cfg)
     dev = state.cur_pose.device
 
     pyr_cur = gaussian_image_pyramid(left, n, smooth=True)
-    track: TrackResult = solve_pose_points(state.kf_track, pyr_cur, cam, cfg.tracker,
-                                           state.pose_init)
+    if cfg.tracker.engine == "points":
+        track: TrackResult = solve_pose_points(state.kf_track, pyr_cur, cam, cfg.tracker,
+                                               state.pose_init)
+    else:
+        track = solve_pose(state.kf_pyr, state.kf_dpyr, pyr_cur, cam, cfg.tracker,
+                           state.pose_init)
     cur_pose = se3_compose(state.kf_pose, se3_inverse(track.T))
 
     # Keyframe criterion (:254-258): [|angX|, |angY|, |angZ|, |tx|, |ty|, |tz|] . w
@@ -158,7 +167,7 @@ def step(state: OdometryState, left: torch.Tensor, right: torch.Tensor,
     if cfg.depth_every_frame or bool(candidate):
         dres = compute_depth(left, right, cfg.camera, cfg.depth)
         dpyr_cur = depth_pyramid(dres.inv_depth, n, indexing=cfg.tracker.depth_decimation)
-        track_cur = prepare_keyframe(pyr_cur, dpyr_cur, cfg.tracker)
+        track_cur = _keyframe_track(pyr_cur, dpyr_cur, cfg)
     else:
         # Lazy frontend skipped depth: zero products, healthy by definition.
         zeros = torch.zeros_like

@@ -1,5 +1,5 @@
-"""Coarse-to-fine direct photometric SE(3) tracker, point engine (port of
-``tracking/tracker.py``; reference ``lm_optimizer.cpp:54-160``).
+"""Coarse-to-fine direct photometric SE(3) tracker, point and dense engines
+(port of ``tracking/tracker.py``; reference ``lm_optimizer.cpp:54-160``).
 
 The per-level LM ``lax.while_loop`` becomes a Python loop that reads the
 ``active`` flag on the host once per iteration and stops when it clears, so
@@ -14,7 +14,9 @@ reference's:
 * always solve (JtWJ + lambda diag(JtWJ)) delta = -JtWr and retry from
   exp(delta) @ current.
 
-The dense ``solve_pose`` (``kernels/photometric.py``) is not ported yet.
+Both engines share that loop: ``solve_pose_points`` linearizes at the
+keyframe's extracted point lists, ``solve_pose`` (the dense engine) at every
+pixel of each level (``kernels/photometric.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from odometry_torch.config import TrackerConfig
 from odometry_torch.geometry import se3_compose, se3_exp, se3_identity
 from odometry_torch.image.pyramid import central_gradients
 from odometry_torch.image.sampling import clip_gather_2d
+from odometry_torch.kernels.photometric import normal_equations, residual_jacobian
 from odometry_torch.kernels.points import (
     PointSet,
     depth_point_pyramid,
@@ -69,6 +72,27 @@ def prepare_keyframe(pyr_kf: Sequence[torch.Tensor], dpyr_kf: Sequence[torch.Ten
     )
 
 
+def _solve_level(img_kf: torch.Tensor, dep_kf: torch.Tensor, img_cur: torch.Tensor,
+                 cam_l: Pinhole, T_init: torch.Tensor, max_iters: int, cfg: TrackerConfig,
+                 step_tol: float | None = None):
+    """One level of the dense engine: every pixel of the keyframe level."""
+
+    def system(T):
+        sys = residual_jacobian(img_kf, dep_kf, img_cur, cam_l, T, boundary=cfg.boundary,
+                                min_inv_depth=cfg.min_inv_depth_valid, interp=cfg.interp)
+        if cfg.affine_light:
+            # Refit every iteration, as the reference's code does.
+            a_fit, b_fit = fit_affine_ab(sys.r.reshape(-1), img_kf.reshape(-1),
+                                         sys.valid.reshape(-1))
+            vf = sys.valid.to(sys.r.dtype)
+            sys = sys._replace(r=sys.r - vf * ((a_fit - 1.0) * img_kf + b_fit))
+        w = robust_weights(cfg.robust, sys.r, sys.valid, huber_delta=cfg.huber_delta,
+                           tdist_dof=cfg.tdist_dof, tdist_sigma_init=cfg.tdist_sigma_init)
+        return normal_equations(sys, w)
+
+    return _lm_loop(system, T_init, max_iters, cfg, step_tol)
+
+
 def _solve_level_points(kf_level: KeyframeLevel, img_cur: torch.Tensor, cam_l: Pinhole,
                         T_init: torch.Tensor, max_iters: int, cfg: TrackerConfig,
                         step_tol: float | None = None):
@@ -93,7 +117,7 @@ def _solve_level_points(kf_level: KeyframeLevel, img_cur: torch.Tensor, cam_l: P
 
 def _lm_loop(system, T_init: torch.Tensor, max_iters: int, cfg: TrackerConfig,
              step_tol: float | None = None):
-    """Levenberg-Marquardt over `system(T) -> PointNormalEqs`; returns
+    """Levenberg-Marquardt over `system(T) -> (Point)NormalEqs`; returns
     (T, failed, LevelStats)."""
     if step_tol is None:
         step_tol = cfg.step_tol
@@ -139,23 +163,45 @@ def _lm_loop(system, T_init: torch.Tensor, max_iters: int, cfg: TrackerConfig,
     return current, failed, stats
 
 
-def solve_pose_points(kf_levels: Tuple[KeyframeLevel, ...], pyr_cur: Sequence[torch.Tensor],
-                      cam: Pinhole, cfg: TrackerConfig,
-                      T_init: torch.Tensor | None = None) -> TrackResult:
-    """Track the current frame against the prepared keyframe point lists,
-    coarsest level first (``lm_optimizer.cpp:54-160``)."""
+def _coarse_to_fine(solve_level, cfg: TrackerConfig, cam: Pinhole,
+                    T: torch.Tensor) -> TrackResult:
+    """Run `solve_level(l, cam_l, T, max_iters, step_tol)` coarsest level
+    first, chaining the pose; a level that found no residuals fails the solve
+    and the result is identity (``lm_optimizer.cpp:54-69``)."""
     num_levels = cfg.num_levels
     cams = intrinsic_pyramid(cam, num_levels)
-    dev = pyr_cur[0].device
-    T = T_init if T_init is not None else se3_identity(device=dev)
+    dev = T.device
     failed = torch.tensor(False, device=dev)
     stats = []
     for l in range(num_levels - 1, -1, -1):
         tol = cfg.step_tol if l == 0 else max(cfg.step_tol, cfg.coarse_step_tol)
-        T, failed_l, st = _solve_level_points(kf_levels[l], pyr_cur[l], cams[l], T,
-                                              cfg.max_iterations[l], cfg, tol)
+        T, failed_l, st = solve_level(l, cams[l], T, cfg.max_iterations[l], tol)
         failed = failed | failed_l
         stats.append(st)
     ok = ~failed
     T_out = torch.where(ok, T, se3_identity(dtype=T.dtype, device=dev))
     return TrackResult(T_out, ok, tuple(stats))
+
+
+def solve_pose(pyr_kf: Sequence[torch.Tensor], dpyr_kf: Sequence[torch.Tensor],
+               pyr_cur: Sequence[torch.Tensor], cam: Pinhole, cfg: TrackerConfig,
+               T_init: torch.Tensor | None = None) -> TrackResult:
+    """Dense engine: track the current frame against the keyframe's image and
+    inverse-depth pyramids, coarsest level first (``lm_optimizer.cpp:54-160``)."""
+    T = T_init if T_init is not None else se3_identity(device=pyr_cur[0].device)
+    return _coarse_to_fine(
+        lambda l, cam_l, T_, iters, tol: _solve_level(pyr_kf[l], dpyr_kf[l], pyr_cur[l], cam_l,
+                                                       T_, iters, cfg, tol),
+        cfg, cam, T)
+
+
+def solve_pose_points(kf_levels: Tuple[KeyframeLevel, ...], pyr_cur: Sequence[torch.Tensor],
+                      cam: Pinhole, cfg: TrackerConfig,
+                      T_init: torch.Tensor | None = None) -> TrackResult:
+    """Track the current frame against the prepared keyframe point lists,
+    coarsest level first (``lm_optimizer.cpp:54-160``)."""
+    T = T_init if T_init is not None else se3_identity(device=pyr_cur[0].device)
+    return _coarse_to_fine(
+        lambda l, cam_l, T_, iters, tol: _solve_level_points(kf_levels[l], pyr_cur[l], cam_l, T_,
+                                                              iters, cfg, tol),
+        cfg, cam, T)

@@ -1,4 +1,5 @@
-"""The port on an NVIDIA card: the band kernel and the CUDA path vs the CPU path.
+"""The port on an NVIDIA card: the band and full-search kernels, the dispatcher,
+and the CUDA path vs the CPU path.
 
 These tests need a CUDA card and nvcc, and skip elsewhere. They import
 neither jax nor the reference, so they run on a machine without JAX:
@@ -17,8 +18,8 @@ from odometry_torch.config import CameraConfig, fast_config
 from odometry_torch.data.synthetic import drive_trajectory, make_scene, render_stereo
 from odometry_torch.depth.estimator import compute_depth
 from odometry_torch.image.pyramid import gaussian_blur3
-from odometry_torch.kernels import disparity_band
-from odometry_torch.kernels.disparity import pattern_stack
+from odometry_torch.kernels import disparity_band, disparity_full
+from odometry_torch.kernels.disparity import disparity_winner_maps, pattern_stack
 from odometry_torch.pipeline.runner import run_sequence
 
 pytestmark = pytest.mark.cuda
@@ -51,16 +52,16 @@ def _ssd(PL, PR, y, x, xr):
     return ((PL[:, y, x] - PR[:, y, xr]) ** 2).sum(dim=0)
 
 
-@pytest.mark.parametrize("shape", [(48, 256, 64), (64, 384, 192)])
-def test_band_kernel_matches_plain(card, shape):
-    H, W, D = shape
-    ls, rs = _stereo(H, W, 0, card)
-    kw = dict(boundary=4, min_disparity=None, max_disparity=D, lr=True, second_best=True)
-    before = disparity_band.LAUNCHES
-    bk, mk, rk, sk = disparity_band.disparity_band(ls, rs, **kw)
+def _check_kernel_against_plain(kernel, plain, counter, ls, rs, **kw):
+    """`kernel` (which counts its launches in module `counter`) against its
+    plain version on the same inputs: winners differ only at near-ties, on
+    at most 1% of pixels; best and second within the near-tie band."""
+    H, W = ls.shape
+    before = counter.LAUNCHES
+    bk, mk, rk, sk = kernel(ls, rs, **kw)
     torch.cuda.synchronize()
-    assert disparity_band.LAUNCHES == before + 1
-    bp, mp, rp, sp = disparity_band.disparity_band_plain(ls, rs, **kw)
+    assert counter.LAUNCHES == before + 1
+    bp, mp, rp, sp = plain(ls, rs, **kw)
     PL, PR = pattern_stack(ls), pattern_stack(rs)
     ln, rn = (PL * PL).sum(0), (PR * PR).sum(0)
     band = lambda y, x, xr: TIE_ABS + TIE_REL * (ln[y, x] + rn[y, xr])
@@ -79,6 +80,49 @@ def test_band_kernel_matches_plain(card, shape):
     assert bool(((bk - bp)[y, x].abs() <= band(y, x, mp[y, x].long())).all())
     same = (mk == mp) & (sp < 1e9)
     assert bool(((sk - sp).abs()[same] <= TIE_ABS + TIE_REL * 2 * ln.max()).all())
+
+
+@pytest.mark.parametrize("shape", [(48, 256, 64), (64, 384, 192)])
+def test_band_kernel_matches_plain(card, shape):
+    H, W, D = shape
+    ls, rs = _stereo(H, W, 0, card)
+    _check_kernel_against_plain(disparity_band.disparity_band, disparity_band.disparity_band_plain,
+                                disparity_band, ls, rs, boundary=4, min_disparity=None,
+                                max_disparity=D, lr=True, second_best=True)
+
+
+@pytest.mark.parametrize("band", [(None, None), (12, None), (12, 300)])
+@pytest.mark.parametrize("shape", [(48, 96), (64, 384)])
+def test_full_kernel_matches_plain(card, shape, band):
+    H, W = shape
+    ls, rs = _stereo(H, W, 0, card)
+    _check_kernel_against_plain(disparity_full.disparity_full, disparity_full.disparity_full_plain,
+                                disparity_full, ls, rs, boundary=4, min_disparity=band[0],
+                                max_disparity=band[1], lr=True, second_best=True)
+
+
+def test_full_kernel_refuses_what_it_does_not_take(card):
+    ls, rs = _stereo(48, 96, 0, card)
+    kw = dict(boundary=4, min_disparity=None, max_disparity=None, lr=False)
+    with pytest.raises(ValueError):
+        disparity_full.disparity_full(ls.double(), rs.double(), **kw)
+    with pytest.raises(ValueError):
+        disparity_full.disparity_full(ls.cpu(), rs.cpu(), **kw)
+    wide = torch.zeros((8, 6000), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        disparity_full.disparity_full(wide, wide, **kw)
+
+
+def test_dispatcher_routes_as_the_reference(card):
+    ls, rs = _stereo(48, 384, 0, card)
+    for max_d, launched in ((192, disparity_band), (300, disparity_full),
+                            (None, disparity_full)):
+        counts = (disparity_band.LAUNCHES, disparity_full.LAUNCHES)
+        disparity_winner_maps(ls, rs, boundary=4, max_disparity=max_d, lr_check=True)
+        torch.cuda.synchronize()
+        after = (disparity_band.LAUNCHES, disparity_full.LAUNCHES)
+        expect = (counts[0] + (launched is disparity_band), counts[1] + (launched is disparity_full))
+        assert after == expect
 
 
 def test_band_kernel_refuses_what_it_does_not_take(card):

@@ -7,32 +7,40 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from odometry_tpu import config as jc
 from odometry_tpu.camera import Pinhole as JPinhole
-from odometry_tpu.config import CameraConfig, DepthConfig, fast_config
 from odometry_tpu.data.synthetic import make_scene, render_stereo
 from odometry_tpu.depth import estimator as je
+from odometry_torch import config as tc
 from odometry_torch.depth import estimator as te
 
 # The 144x320 camera of tests/test_pipeline.py:288-295.
 HS, WS = 144, 320
-CAM_CFG = CameraConfig(fx=180.0, fy=180.0, cx=WS / 2.0, cy=HS / 2.0, baseline=0.537,
-                       height=HS, width=WS)
+CAM = dict(fx=180.0, fy=180.0, cx=WS / 2.0, cy=HS / 2.0, baseline=0.537, height=HS, width=WS)
+CAM_J, CAM_T = jc.CameraConfig(**CAM), tc.CameraConfig(**CAM)
 
-FAST = fast_config().depth
-CASES = {
-    # The fast_config path: banded search [3, 192] with the left-right check,
-    # gradient-ranked blocked extraction, window-patch refinement.
-    "fast": FAST,
-    # Full-image lane refinement of the same selection.
-    "fast_full_refine": dataclasses.replace(FAST, refine_backend="full"),
-    # Full search (no band), row-order lanes, full-image bilinear refinement
-    # of the matched lanes. Lanes that start unmatched from inverse depth 0
-    # (refine_unmatched, the reference default) jump tens of pixels, which
-    # amplifies the reference's fused multiply-adds (see
-    # test_floor_warp_matches_eager_reference) past any fixed tolerance.
-    "full_search": DepthConfig(block_rows=8, block_cols=16, min_valid_points=30,
-                               interp="bilinear", refine_unmatched=False),
-}
+
+def _cases(C):
+    """The depth configurations under test, built by config module `C` (each
+    package gets its own)."""
+    fast = C.fast_config().depth
+    return {
+        # The fast_config path: banded search [3, 192] with the left-right
+        # check, gradient-ranked blocked extraction, window-patch refinement.
+        "fast": fast,
+        # Full-image lane refinement of the same selection.
+        "fast_full_refine": dataclasses.replace(fast, refine_backend="full"),
+        # Full search (no band), row-order lanes, full-image bilinear
+        # refinement of the matched lanes. Lanes that start unmatched from
+        # inverse depth 0 (refine_unmatched, the reference default) jump tens
+        # of pixels, which amplifies the reference's fused multiply-adds (see
+        # test_floor_warp_matches_eager_reference) past any fixed tolerance.
+        "full_search": C.DepthConfig(block_rows=8, block_cols=16, min_valid_points=30,
+                                     interp="bilinear", refine_unmatched=False),
+    }
+
+
+CASES_J, CASES_T = _cases(jc), _cases(tc)
 
 
 @pytest.fixture(scope="module")
@@ -43,12 +51,11 @@ def stereo():
     return np.array(left), np.array(right)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES_T))
 def test_compute_depth_matches_reference(stereo, case):
-    cfg = CASES[case]
     left, right = stereo
-    rj = je.compute_depth(jnp.asarray(left), jnp.asarray(right), CAM_CFG, cfg)
-    rt = te.compute_depth(torch.from_numpy(left), torch.from_numpy(right), CAM_CFG, cfg)
+    rj = je.compute_depth(jnp.asarray(left), jnp.asarray(right), CAM_J, CASES_J[case])
+    rt = te.compute_depth(torch.from_numpy(left), torch.from_numpy(right), CAM_T, CASES_T[case])
     nj, nt = int(rj.num_valid), int(rt.num_valid)
     assert nj > 500
     # Survivor count within 1%, validity IoU >= 0.98: float32 sums in another
@@ -68,7 +75,7 @@ def test_compute_depth_matches_reference(stereo, case):
 
 def test_compute_depth_fails_on_textureless():
     flat = torch.full((HS, WS), 128.0)
-    res = te.compute_depth(flat, flat, CAM_CFG, FAST)
+    res = te.compute_depth(flat, flat, CAM_T, CASES_T["fast"])
     assert not bool(res.ok) and int(res.num_valid) == 0
     assert not res.valid.any()
 
@@ -89,10 +96,10 @@ def test_floor_warp_matches_eager_reference(stereo):
     n = 2048
     ys = rng.integers(4, HS - 4, n).astype(np.int32)
     xs = rng.integers(4, WS - 4, n).astype(np.float32)
-    d = (rng.uniform(0, 40, n) / (CAM_CFG.fx * CAM_CFG.baseline)).astype(np.float32)
+    d = (rng.uniform(0, 40, n) / (CAM["fx"] * CAM["baseline"])).astype(np.float32)
     d[::7] = 0.0
     valid = rng.uniform(size=n) > 0.1
-    tx_fx = CAM_CFG.baseline * CAM_CFG.fx
+    tx_fx = CAM["baseline"] * CAM["fx"]
     from odometry_tpu.image.pyramid import central_gradients as jgrad
     from odometry_torch.image.pyramid import central_gradients as tgrad
 

@@ -1,8 +1,10 @@
 """Stereo search: selection, pattern stacks, winner maps and the dispatcher.
 
 The port's plain winner maps are held to the reference's XLA path and to the
-reference's Pallas band kernel itself, run in interpret mode on the CPU as
-tests/test_disparity_pallas.py runs it.
+reference's two Pallas kernels themselves (the band kernel and the
+full-search ``_kernel``), run in interpret mode on the CPU as
+tests/test_disparity_pallas.py runs them; the full search also to the
+reference's direct-SSD golden model.
 """
 
 import numpy as np
@@ -14,19 +16,32 @@ from odometry_tpu.camera import Pinhole as JPinhole
 from odometry_tpu.data.synthetic import make_scene, render_stereo
 from odometry_tpu.image import gaussian_blur3 as jblur
 from odometry_tpu.kernels import disparity as jd, select as jsel
-from odometry_torch.kernels import disparity as td, disparity_band, select as tsel
+from odometry_tpu.kernels.disparity_pallas import disparity_cost_argmin_pallas
+from odometry_torch import config as tc
+from odometry_torch.depth.estimator import search_band
+from odometry_torch.kernels import disparity as td, disparity_band, disparity_full
+from odometry_torch.kernels import select as tsel
 
 H, W = 48, 320
 MAX_DISP = 160
 
 
+def _render(h, w, fx):
+    cam = JPinhole.create(fx, fx, w / 2.0, h / 2.0)
+    scene = make_scene(5, depth=10.0)
+    left, right, _ = render_stereo(scene, cam, 0.537, jnp.eye(4), h, w)
+    return np.array(jblur(left)), np.array(jblur(right))
+
+
 @pytest.fixture(scope="module")
 def stereo():
-    cam = JPinhole.create(140.0, 140.0, W / 2.0, H / 2.0)
-    scene = make_scene(5, depth=10.0)
-    left, right, _ = render_stereo(scene, cam, 0.537, jnp.eye(4), H, W)
-    ls, rs = np.array(jblur(left)), np.array(jblur(right))
-    return ls, rs
+    return _render(H, W, 140.0)
+
+
+@pytest.fixture(scope="module")
+def stereo_small():
+    """The 48x96 pair of tests/test_disparity_pallas.py (interpret mode is slow)."""
+    return _render(48, 96, 140.0)
 
 
 def _t(a):
@@ -125,19 +140,160 @@ def test_plain_matches_pallas_band_kernel(stereo, lr):
 
 def test_dispatcher_runs_plain_on_cpu_and_never_on_other_devices(stereo):
     ls, rs = stereo
-    before = disparity_band.LAUNCHES
-    kw = dict(boundary=4, max_disparity=MAX_DISP, lr_check=True)
-    out = td.disparity_winner_maps(_t(ls), _t(rs), **kw)
-    plain = disparity_band.disparity_band_plain(_t(ls), _t(rs), boundary=4, min_disparity=None,
-                                                max_disparity=MAX_DISP, lr=True)
-    for a, b in zip(out, plain):
-        assert torch.equal(a, b)
-    assert disparity_band.LAUNCHES == before
-    # A non-CPU tensor never takes the plain version: the full search has no
-    # kernel yet, and the band wrapper refuses anything but CUDA tensors.
+    before = (disparity_band.LAUNCHES, disparity_full.LAUNCHES)
+    for max_d in (MAX_DISP, None):
+        kw = dict(boundary=4, max_disparity=max_d, lr_check=True)
+        out = td.disparity_winner_maps(_t(ls), _t(rs), **kw)
+        plain = disparity_band.disparity_band_plain(_t(ls), _t(rs), boundary=4,
+                                                    min_disparity=None, max_disparity=max_d,
+                                                    lr=True)
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b)
+    assert (disparity_band.LAUNCHES, disparity_full.LAUNCHES) == before
+    # A non-CPU tensor never takes the plain version: both kernel wrappers
+    # refuse anything but CUDA tensors.
     meta = torch.empty((H, W), device="meta")
-    with pytest.raises(NotImplementedError, match="B2"):
-        td.disparity_winner_maps(meta, meta, boundary=4, max_disparity=None)
-    with pytest.raises(ValueError, match="CUDA"):
-        td.disparity_winner_maps(meta, meta, boundary=4, max_disparity=MAX_DISP)
-    assert disparity_band.LAUNCHES == before
+    for max_d in (None, MAX_DISP, 300):
+        with pytest.raises(ValueError, match="CUDA"):
+            td.disparity_winner_maps(meta, meta, boundary=4, max_disparity=max_d)
+    assert (disparity_band.LAUNCHES, disparity_full.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("max_d,route", [(24, "band"), (192, "band"), (256, "band"),
+                                         (257, "full"), (1241, "full"), (None, "full")])
+def test_route_mirrors_reference(max_d, route):
+    from odometry_tpu.kernels.disparity_pallas import band_fits_vmem
+
+    assert td._route(max_d) == route
+    if max_d is not None:
+        assert (route == "band") == band_fits_vmem(max_d)
+
+
+def test_presets_route_as_the_reference_launches():
+    """At KITTI size fast_config's band [12, 192] takes the band kernel;
+    accurate_config's [12, 1241] and kitti_config's full search the
+    full-search kernel, as the reference's Pallas routing does."""
+    routes = {}
+    for preset in ("fast_config", "accurate_config", "kitti_config"):
+        cfg = getattr(tc, preset)()
+        routes[preset] = (search_band(cfg.camera, cfg.depth), td._route(
+            search_band(cfg.camera, cfg.depth)[1]))
+    assert routes == {"fast_config": ((12, 192), "band"),
+                      "accurate_config": ((12, 1241), "full"),
+                      "kitti_config": ((None, None), "full")}
+
+
+def _search_flips_are_ties(ls, rs, rp, rt, budget_of):
+    """`disparity_search` results of the reference (`rp`) and the port (`rt`):
+    `matched` and `disparity` agree except at near-ties of the winner's SSD,
+    within the selected-pixel budget."""
+    mp, mt = np.asarray(rp.matched), rt.matched.numpy()
+    both = mp & mt
+    budget = max(2, int(budget_of * both.sum()))
+    assert (mp != mt).sum() <= budget
+    dp, dt = np.asarray(rp.disparity), rt.disparity.numpy()
+    flips = both & (dp != dt)
+    assert flips.sum() <= budget
+    ys, xs = np.nonzero(flips)
+    xr_p = (xs - dp[ys, xs]).astype(int)
+    xr_t = (xs - dt[ys, xs]).astype(int)
+    assert (_near_ties(ls, rs, ys, xs, xr_p, xr_t) < TIE).all()
+    np.testing.assert_allclose(rt.best_ssd.numpy()[both], np.asarray(rp.best_ssd)[both],
+                               rtol=512 * 2.0**-23, atol=1.0)
+
+
+def _full_kernel_maps(ls, rs, max_d, min_d=None):
+    """The reference's full-search Pallas ``_kernel`` (interpret mode on the
+    CPU), called directly so that a narrow band is not routed to the band
+    kernel."""
+    PL, PR = jd.pattern_stack(jnp.asarray(ls)), jd.pattern_stack(jnp.asarray(rs))
+    return disparity_cost_argmin_pallas(PL, PR, jnp.sum(PL * PL, axis=0),
+                                        jnp.sum(PR * PR, axis=0), boundary=4,
+                                        max_disparity=max_d, min_disparity=min_d)
+
+
+@pytest.mark.parametrize("lr", [False, True])
+@pytest.mark.parametrize("max_d", [None, 24])
+def test_plain_full_search_matches_xla_and_pallas_kernel(stereo_small, lr, max_d):
+    ls, rs = stereo_small
+    h, w = ls.shape
+    kw = dict(boundary=4, max_disparity=max_d, lr_check=lr)
+    ref = jd.disparity_winner_maps(jnp.asarray(ls), jnp.asarray(rs), backend="xla", **kw)
+    port = td.disparity_winner_maps(_t(ls), _t(rs), **kw)
+    _check_maps(ls, rs, ref, port, np.ones((h, w), bool))
+
+    sel = jsel.select_points(jnp.asarray(ls), boundary=4, block_rows=4, block_cols=8,
+                             grad_th=8.0, max_points_per_block=80)
+    fin = dict(fx=140.0, baseline=0.537, boundary=4, ssd_th=900.0, lr_check=lr, lr_tol=1)
+    best, match, rmatch, _ = _full_kernel_maps(ls, rs, max_d)
+    rp = jd._finalize(jnp.asarray(ls), best, match, rmatch, sel, **fin)
+    rt = td.disparity_search(_t(ls), _t(rs), _t(sel), max_disparity=max_d,
+                             **{k: v for k, v in fin.items() if k != "lr_tol"})
+    _search_flips_are_ties(ls, rs, rp, rt, 0.005)
+
+
+@pytest.mark.parametrize("lr", [False, True])
+def test_plain_wide_band_matches_pallas_kernel(stereo, lr):
+    """The band [12, 320] at 48x320: too wide for the reference's band
+    kernel, so its routing takes the full-search ``_kernel`` with the band as
+    a mask; the port's router takes its full-search kernel."""
+    ls, rs = stereo
+    assert td._route(W) == "full"
+    sel = jsel.select_points(jnp.asarray(ls), boundary=4, block_rows=4, block_cols=8,
+                             grad_th=8.0, max_points_per_block=80)
+    kw = dict(fx=140.0, baseline=0.537, boundary=4, ssd_th=900.0, lr_check=lr,
+              max_disparity=W, min_disparity=12)
+    rp = jd.disparity_search(jnp.asarray(ls), jnp.asarray(rs), sel, backend="pallas", **kw)
+    rt = td.disparity_search(_t(ls), _t(rs), _t(sel), **kw)
+    _search_flips_are_ties(ls, rs, rp, rt, 0.005)
+
+
+def test_reference_full_kernel_scores_padded_columns():
+    """A defect of the reference (ROADMAP C), pinned: the full-search Pallas
+    kernel pads the width to Wp = 128 with zero left patterns, and its
+    reverse pass scores those padded query columns x in [W, Wp) as
+    candidates, with SSD = rn[xr]. In a dark region of the right image (small
+    rn) they win: `rmatch` points past the image. `match` is unaffected. The
+    port follows the XLA path, which has no padded columns."""
+    rng = np.random.default_rng(0)
+    h, w = 16, 96
+    left = rng.uniform(0.0, 255.0, (h, w)).astype(np.float32)
+    right = rng.uniform(0.0, 255.0, (h, w)).astype(np.float32)
+    right[:, 40:60] = 1.0
+    kw = dict(boundary=4, max_disparity=None, lr_check=True)
+    bx, mx, rx, _ = (np.asarray(a) for a in jd.disparity_winner_maps(
+        jnp.asarray(left), jnp.asarray(right), backend="xla", **kw))
+    bp, mp, rp, _ = (np.asarray(a) for a in jd.disparity_winner_maps(
+        jnp.asarray(left), jnp.asarray(right), backend="pallas", **kw))
+    np.testing.assert_array_equal(mp, mx)
+    differ = rp != rx
+    assert differ.sum() > 0 and (rp[differ] >= w).all()
+    assert differ[:, 40:60].any()
+    port = td.disparity_winner_maps(_t(left), _t(right), **kw)
+    assert (port[2].numpy() < w).all()
+    _check_maps(left, right, (bx, mx, rx), port, np.ones((h, w), bool))
+
+
+def test_golden_model_matches_plain_full_search():
+    """The reference's direct-SSD golden model, copied into the port, agrees
+    with the reference's own exactly and with the port's plain full search
+    except at near-ties (24x64, every selected pixel)."""
+    ls, rs = _render(24, 64, 37.0)
+    sel = jsel.select_points(jnp.asarray(ls), boundary=4, block_rows=2, block_cols=4,
+                             grad_th=8.0, max_points_per_block=80)
+    kw = dict(fx=37.0, baseline=0.537, boundary=4, ssd_th=900.0)
+    golden = td.disparity_search_reference(ls, rs, np.asarray(sel), **kw)
+    for a, b in zip(golden, jd.disparity_search_reference(ls, rs, sel, **kw)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert np.asarray(sel).sum() > 50 and golden[2].sum() > 20
+    rt = td.disparity_search(_t(ls), _t(rs), _t(np.asarray(sel)), **kw)
+    disp, inv_depth, matched, best = golden
+    assert (matched != rt.matched.numpy()).sum() <= 2
+    both = matched & rt.matched.numpy()
+    flips = both & (disp != rt.disparity.numpy())
+    assert flips.sum() <= 2
+    ys, xs = np.nonzero(flips)
+    assert (_near_ties(ls, rs, ys, xs, (xs - disp[ys, xs]).astype(int),
+                       (xs - rt.disparity.numpy()[ys, xs]).astype(int)) < TIE).all()
+    np.testing.assert_allclose(rt.best_ssd.numpy()[both], best[both], rtol=512 * 2.0**-23,
+                               atol=1.0)

@@ -78,3 +78,39 @@ def test_pinhole_levels_and_projection():
     for a, b in zip(J, Tt):
         _close(a, b, atol=1e-4)
     _close(jp.project(jcam, *J)[0], tp.project(tcam, *Tt)[0], atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["random", "small"])
+def test_adjoint_and_transform_points_match(kind):
+    xi = _twists(kind)
+    T = np.array(jg.se3_exp(jnp.asarray(xi)))
+    _close(jg.se3_adjoint(jnp.asarray(T)), tg.se3_adjoint(torch.from_numpy(T)))
+    pts = np.random.default_rng(3).normal(0, 5, (16, 40, 3)).astype(np.float32)
+    # A 3-term float32 dot product per coordinate, values up to ~20.
+    _close(jg.transform_points(jnp.asarray(T), jnp.asarray(pts)),
+           tg.transform_points(torch.from_numpy(T), torch.from_numpy(pts)), atol=2e-5)
+
+
+def test_warp_points_match():
+    rng = np.random.default_rng(4)
+    H, W = 48, 96
+    cam_j, cam_t = jp.Pinhole.create(70.0, 70.0, 48.0, 24.0), tp.Pinhole.create(70.0, 70.0,
+                                                                                 48.0, 24.0)
+    xs = rng.uniform(0, W, 500).astype(np.float32)
+    ys = rng.uniform(0, H, 500).astype(np.float32)
+    z = rng.uniform(-1.0, 20.0, 500).astype(np.float32)
+    T = np.array(jg.se3_exp(jnp.asarray(_twists("small")[0] * 0.3)))
+    Pj = jp.backproject(cam_j, jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(z))
+    Pt = tp.backproject(cam_t, *(torch.from_numpy(a) for a in (xs, ys, z)))
+    uj, vj, zj, okj = jp.warp_points(cam_j, jnp.asarray(T), *Pj, H, W)
+    ut, vt, zt, okt = tp.warp_points(cam_t, torch.from_numpy(T), *Pt, H, W)
+    # Projections of float32 points, pixel coordinates up to ~1e3.
+    _close(uj, ut, atol=1e-3)
+    _close(vj, vt, atol=1e-3)
+    _close(zj, zt)
+    assert 0 < int(okt.sum()) < 500
+    # Validity may differ only where u or v sits within rounding of an edge.
+    edge = np.minimum.reduce([np.abs(np.asarray(uj)), np.abs(np.asarray(uj) - W),
+                              np.abs(np.asarray(vj)), np.abs(np.asarray(vj) - H)])
+    differ = np.asarray(okj) != okt.numpy()
+    assert (edge[differ] < 1e-3).all()

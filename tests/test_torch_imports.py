@@ -1,4 +1,5 @@
-"""The port imports torch and never jax (checked in a fresh interpreter)."""
+"""The port imports torch, and never jax or the JAX package ``odometry_tpu``
+(checked in a fresh interpreter)."""
 
 import os
 import subprocess
@@ -9,6 +10,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    # Every module of the port, then chip_smoke.py; neither jax nor any
+    # module of odometry_tpu may be loaded afterwards.
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "odometry_torch").rglob("*.py")
@@ -23,6 +26,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "import sys",
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))",
             "assert not bad, bad",
+            "ref = sorted(m for m in sys.modules",
+            "             if m == 'odometry_tpu' or m.startswith('odometry_tpu.'))",
+            "assert not ref, ref",
             "print(len(sys.modules))",
         ]
     )

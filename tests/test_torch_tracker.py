@@ -24,12 +24,13 @@ import torch
 
 from odometry_tpu.camera import Pinhole as JPinhole
 from odometry_tpu.camera.pinhole import intrinsic_pyramid as j_intrinsic_pyramid
-from odometry_tpu.config import fast_config
+from odometry_tpu import config as jc
 from odometry_tpu.image.pyramid import central_gradients as j_gradients
 from odometry_tpu.image.pyramid import depth_pyramid, gaussian_image_pyramid
 from odometry_tpu.kernels import points as jp
 from odometry_tpu.tracking import tracker as jt
 from odometry_torch.camera.pinhole import Pinhole as TPinhole
+from odometry_torch import config as tc
 from odometry_torch.camera.pinhole import intrinsic_pyramid as t_intrinsic_pyramid
 from odometry_torch.data.synthetic import drive_trajectory, make_scene, render
 from odometry_torch.image.pyramid import central_gradients as t_gradients
@@ -38,8 +39,9 @@ from odometry_torch.tracking import tracker as tt
 
 # The 144x320 camera of tests/test_pipeline.py:288-295.
 HS, WS = 144, 320
-FAST = fast_config().tracker
-LEVELS = FAST.num_levels
+# Each package gets its own tracker configuration.
+FAST_J, FAST_T = jc.fast_config().tracker, tc.fast_config().tracker
+LEVELS = FAST_T.num_levels
 CAM_J = JPinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
 CAM_T = TPinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
 
@@ -58,10 +60,10 @@ def sequence():
     # has its own tests.
     inv_depth = jnp.asarray(1.0 / frames[0][1].numpy())
     dpyr = tuple(np.asarray(d) for d in depth_pyramid(inv_depth, LEVELS, smooth=False,
-                                                      indexing=FAST.depth_decimation))
+                                                      indexing=FAST_J.depth_decimation))
     kj = jt.prepare_keyframe(tuple(map(jnp.asarray, pyrs[0])), tuple(map(jnp.asarray, dpyr)),
-                             FAST)
-    kt = tt.prepare_keyframe(_torch(pyrs[0]), _torch(dpyr), FAST)
+                             FAST_J)
+    kt = tt.prepare_keyframe(_torch(pyrs[0]), _torch(dpyr), FAST_T)
     return poses, pyrs, kj, kt
 
 
@@ -95,18 +97,19 @@ POSE_ATOL = {"bilinear": 1e-4, "mm": 5e-4}
 @pytest.mark.parametrize("interp", ["mm", "bilinear"])
 def test_solve_pose_points(sequence, interp):
     poses, pyrs, kj, kt = sequence
-    cfg = dataclasses.replace(FAST, interp=interp)
+    cfg_j = dataclasses.replace(FAST_J, interp=interp)
+    cfg_t = dataclasses.replace(FAST_T, interp=interp)
     for k in range(1, len(poses)):
         # Start from the previous frame's true pose relative to the keyframe.
         T0 = (np.linalg.inv(poses[k - 1]) @ poses[0]).astype(np.float32)
-        solve = lambda: jt.solve_pose_points(kj, tuple(map(jnp.asarray, pyrs[k])), CAM_J, cfg,
+        solve = lambda: jt.solve_pose_points(kj, tuple(map(jnp.asarray, pyrs[k])), CAM_J, cfg_j,
                                              jnp.asarray(T0))
         if interp == "bilinear":
             with jax.disable_jit():
                 rj = solve()
         else:
             rj = solve()  # compiled, as the reference runs it
-        rt = tt.solve_pose_points(kt, _torch(pyrs[k]), CAM_T, cfg, torch.from_numpy(T0))
+        rt = tt.solve_pose_points(kt, _torch(pyrs[k]), CAM_T, cfg_t, torch.from_numpy(T0))
         assert bool(rj.ok) and bool(rt.ok)
         if interp == "bilinear":
             assert [int(s.iters) for s in rj.stats] == [int(s.iters) for s in rt.stats]
