@@ -28,7 +28,21 @@ prints no result line):
 7. kitti_config end to end at 376x1241 on seed 4 of that family (49 frames):
    every state tensor on the card, B2's launches against the depth runs;
 8. the dense tracking engine: kitti_config with ``engine="dense"``, seed 4,
-   10 frames, B2's launches against the depth runs.
+   10 frames, B2's launches against the depth runs;
+9. the ring all-gather kernel B3 against its plain version and ``torch.cat``,
+   bit for bit, on meshes of 1 to 8 virtual ranks of the card, the full
+   width (8 ranks of 7 x 16384 float32) 200 times back to back, and the
+   kernel, plain-version and ``torch.cat`` times beside the bound;
+10. the sweep: ``run_sweep`` of fast_config on ``sequence_mesh(3)`` (three
+    virtual ranks of the card) over phase 5's frames, gated as phase 5, with
+    ``global_ok`` on every frame; one keyframe store per sequence filled as
+    ``run_slam`` fills it (frame 0 and every promotion);
+11. the stores' BA windows: the ring on their window poses and point blocks
+    (bit for bit against the plain version), ``ba_solve`` motion-only (as
+    ``run_slam`` runs it) and with free depths, and ``ba_solve_sharded`` on
+    ``grid_mesh(1, 8)``: motion-only held to ``ba_solve`` within 2e-4 (poses)
+    and 1e-4 (inverse depths), free depths on cost and finiteness (ROADMAP
+    C9).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The second-to-last line is a JSON object describing each kernel; the
@@ -55,11 +69,17 @@ from odometry_torch.data.synthetic import (
     make_scene,
     render_stereo,
 )
+from odometry_torch.distributed import ring_exchange
+from odometry_torch.distributed.ba_dist import ba_solve_sharded
+from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh
+from odometry_torch.distributed.sweep import run_sweep
 from odometry_torch.eval.metrics import mean_translation_error
 from odometry_torch.image.pyramid import gaussian_blur3
 from odometry_torch.kernels import _build, disparity_band, disparity_full
 from odometry_torch.kernels.disparity import _finalize, pattern_stack
 from odometry_torch.kernels.select import select_points
+from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
+from odometry_torch.mapping.keyframe import create_store, insert_keyframe, window_slots
 from odometry_torch.pipeline.odometry import init, step
 from odometry_torch.pipeline.runner import run_sequence
 
@@ -310,16 +330,16 @@ def _timing(kernel, label, kw, card):
 def _reset_counts():
     disparity_band.LAUNCHES = 0
     disparity_full.LAUNCHES = 0
+    ring_exchange.LAUNCHES = 0
 
 
 def _counts():
-    return disparity_band.LAUNCHES, disparity_full.LAUNCHES
+    """(B1, B2, B3) launches since the last reset."""
+    return disparity_band.LAUNCHES, disparity_full.LAUNCHES, ring_exchange.LAUNCHES
 
 
-def _check_state_on_card(frames, cfg):
-    """Every state tensor lives on the card after init and a step."""
-    state, ok = init(*frames[0], cfg, device="cuda")
-    state, _ = step(state, *frames[1], cfg)
+def _state_leaves(state) -> list:
+    """Every tensor of an OdometryState, nested tuples included."""
     leaves = []
 
     def collect(v):
@@ -329,8 +349,16 @@ def _check_state_on_card(frames, cfg):
             for u in v:
                 collect(u)
 
-    for f in type(state).__dataclass_fields__:
-        collect(getattr(state, f))
+    for f in dataclasses.fields(state):
+        collect(getattr(state, f.name))
+    return leaves
+
+
+def _check_state_on_card(frames, cfg):
+    """Every state tensor lives on the card after init and a step."""
+    state, ok = init(*frames[0], cfg, device="cuda")
+    state, _ = step(state, *frames[1], cfg)
+    leaves = _state_leaves(state)
     if not leaves or not all(t.is_cuda for t in leaves):
         raise RuntimeError("a state tensor is not on the card")
     print(f"state: {len(leaves)} tensors, all on {leaves[0].device}", flush=True)
@@ -357,7 +385,7 @@ def _e2e(card):
         res = run_sequence(frames, cfg, device="cuda",
                            progress=lambda i, out: summaries.append(out.summary))
         results.append((seed, poses, res, summaries))
-    launches, full_launches = _counts()
+    launches, full_launches, _ = _counts()
 
     depth_runs = 0
     mtes = []
@@ -385,7 +413,7 @@ def _e2e(card):
     if full_launches != 0:
         raise RuntimeError(f"fast_config launched the full-search kernel {full_launches} times")
     _check_state_on_card(runs[0][2], cfg)
-    return launches
+    return launches, runs, [res for _, _, res, _ in results]
 
 
 def _driving_frames(seeds, num_frames, cfg):
@@ -412,7 +440,7 @@ def _run_full_search_path(name, cfg, runs, card, **run_kw):
     _reset_counts()
     results = [(seed, poses, run_sequence(frames, cfg, device="cuda", **run_kw))
                for seed, (poses, frames) in runs.items()]
-    band_launches, full_launches = _counts()
+    band_launches, full_launches, _ = _counts()
     depth_runs = sum(res.num_frames for _, _, res in results)
     mtes = []
     for seed, poses, res in results:
@@ -464,6 +492,245 @@ def _e2e_full_search(card):
     _check_state_on_card(runs[4][1], dense)
     return launches_acc + launches_kitti + launches_dense
 
+# Phase 9: (ranks, chunk, inner) of the ring cases; the last is the full
+# width, a 7-keyframe BA window of fast_config point blocks per rank (xs, ys,
+# inv_depth and intensity x 4096 lanes).
+RING_CASES = ((1, 4, (128,)), (2, 3, (4, 4)), (3, 5, (4, 4)), (8, 4, (128,)),
+              (8, 3, (4, 4)), (8, 7, (16384,)))
+RING_REPEATS = 200
+
+
+def _device_ms(fn, reps):
+    """Device time of one call of `fn` when `reps` calls run back to back:
+    a sleep kernel keeps the card busy while the host enqueues the calls,
+    so the host's launch overhead does not show (CUDA events around the
+    calls, after the sleep)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # Cycles at up to 2 GHz: at a lower clock the sleep only lasts longer.
+    torch.cuda._sleep(int(2e6 * (2.0 * reps * host_ms + 5.0)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _ring_phase(card):
+    """Phase 9: B3 against its plain version and torch.cat, bit for bit;
+    RING_REPEATS back-to-back launches at full width; times at full width.
+    Returns (timing entry, [max |kernel - plain| per case])."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    errs = []
+    for num, chunk, inner in RING_CASES:
+        shards = [torch.randn((chunk,) + inner, generator=g, device="cuda") for _ in range(num)]
+        outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num), axis="seq")
+        torch.cuda.synchronize()
+        plain = ring_exchange.ring_gather_plain(shards)
+        full = torch.cat(shards)
+        ok = all(torch.equal(o, p) and torch.equal(o, full) for o, p in zip(outs, plain))
+        errs.append(max(float((o - p).abs().max()) for o, p in zip(outs, plain)))
+        print(f"{'PASS' if ok else 'FAIL'}  ring ranks={num} chunk={chunk} inner={inner}: "
+              f"bitwise vs plain and torch.cat, max|diff|={errs[-1]}", flush=True)
+        if not ok:
+            raise RuntimeError(f"ring_gather differs from its plain version at {num, chunk, inner}")
+
+    # The epoch flags: the full-width case (the last, whose shards these
+    # are) RING_REPEATS times back to back, no host read between launches;
+    # mismatches are counted on the card.
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(RING_REPEATS):
+        outs = ring_exchange.ring_gather(shards, check=False)
+        bad = bad + torch.stack([(o != full).any() for o in outs]).sum()
+    ring_exchange.raise_on_error(card)
+    print(f"ring: {RING_REPEATS} back-to-back launches at ranks={num} chunk={chunk} "
+          f"inner={inner}: {int(bad)} outputs differ", flush=True)
+    if int(bad) != 0:
+        raise RuntimeError(f"ring_gather: {int(bad)} outputs of {RING_REPEATS} repeats differ")
+
+    nbytes = shards[0].numel() * shards[0].element_size()
+    ms = _device_ms(lambda: ring_exchange.ring_gather(shards, check=False), 100)
+    plain_ms = _device_ms(lambda: ring_exchange.ring_gather_plain(shards), 5)
+    library_ms = _device_ms(lambda: [torch.cat(shards) for _ in range(num)], 20)
+    ring_exchange.raise_on_error(card)
+    # Least bytes an all-gather on one card moves: every shard read once,
+    # every rank's output written once.
+    bound_ms = 1e3 * (num * nbytes + num * num * nbytes) / PEAK_BYTES_PER_S
+    print(f"timing ring ranks={num} chunk={chunk} inner={inner} float32: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.cat x{num} {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes: {num * nbytes + num * num * nbytes} B) (device time of "
+          f"back-to-back calls, CUDA events) [{card}]", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=library_ms), errs
+
+
+def _state_devices_ok(states, mesh) -> bool:
+    """Every tensor of each rank's state on that rank's device of the card."""
+    return all(leaves and all(t.is_cuda and t.device == dev for t in leaves)
+               for leaves, dev in zip(map(_state_leaves, states), mesh.axis_devices("seq")))
+
+
+def _sweep_phase(card, runs, single_results):
+    """Phase 10: run_sweep of fast_config on sequence_mesh(3) over phase 5's
+    frames, gated as phase 5, global_ok on every frame; fills one keyframe
+    store per sequence as run_slam does (pipeline/slam.py:124-128,200-205)
+    and returns the stores."""
+    cfg = fast_config()
+    c = cfg.camera
+    frames_per_seq = [frames for _, _, frames in runs]
+    mesh = sequence_mesh(len(runs))
+    summaries = [[] for _ in runs]
+    health = []
+    stores = []
+    paths = [[0.0, None] for _ in runs]  # trajectory length, last position
+    final = []
+
+    def on_frame(i, states, outs, global_ok):
+        health.append(bool(global_ok))
+        final[:] = [states]
+        for s, state in enumerate(states):
+            kf = state.kf_track[0]
+            if outs is None:
+                stores.append(insert_keyframe(
+                    create_store(32, cfg.tracker.point_capacity, c.height, c.width,
+                                 device=state.kf_pose.device),
+                    kf.pts, kf.intensity, state.kf_pose, 0, image=state.kf_pyr[0]))
+                paths[s][1] = np.zeros(3, np.float32)
+                continue
+            summ = outs[s].summary.cpu().numpy()
+            summaries[s].append(summ)
+            pos = summ[:16].reshape(4, 4)[:3, 3]
+            paths[s][0] += float(np.linalg.norm(pos - paths[s][1]))
+            paths[s][1] = pos
+            if summ[32] > 0.5:  # promoted
+                stores[s] = insert_keyframe(stores[s], kf.pts, kf.intensity, state.kf_pose, i,
+                                            image=state.kf_pyr[0], path=paths[s][0])
+
+    _reset_counts()  # count this path's launches only
+    t0 = time.perf_counter()
+    poses = run_sweep(frames_per_seq, cfg, mesh, progress=on_frame)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    band, full, ring = _counts()
+
+    num_frames = len(frames_per_seq[0])
+    depth_runs, mtes = 0, []
+    for s, (seed, truth, _) in enumerate(runs):
+        summ = np.stack(summaries[s])
+        depth_runs += 1 + int(((summ[:, 37] > 0) | (summ[:, 34] < 0.5)).sum())
+        kf_ids = [0] + [i + 1 for i in np.nonzero(summ[:, 32] > 0.5)[0].tolist()]
+        mte = mean_translation_error(truth, poses[s])
+        mtes.append(mte)
+        gap = float(np.abs(poses[s][:, :3, 3] - single_results[s].poses[:, :3, 3]).max())
+        print(f"sweep seed={seed}: mte={mte:.6f} keyframes={kf_ids} (run_sequence: "
+              f"{single_results[s].keyframe_ids}) max per-frame translation gap to "
+              f"run_sequence={gap:.6e} m [{card}]", flush=True)
+    med = float(np.median(mtes))
+    rate = len(runs) * (num_frames - 1) / seconds
+    print(f"sweep: {len(runs)} sequences x {num_frames} frames on {mesh.size} virtual ranks of "
+          f"{mesh.devices[0]}: median mte={med:.6f} (gate < 0.15), global_ok on "
+          f"{sum(health)}/{len(health)} frames, {rate:.3f} sequence-frames/s "
+          f"({seconds:.3f} s, store inserts included); band-kernel launches={band}, "
+          f"full-search launches={full}, ring launches={ring}, depth runs={depth_runs} "
+          f"[{card}]", flush=True)
+    if not med < 0.15:
+        raise RuntimeError(f"sweep median mte {med} fails the gate 0.15 ({mtes})")
+    if not all(health):
+        raise RuntimeError(f"sweep: global_ok False on {health.count(False)} frames")
+    if band == 0 or band != depth_runs or full != 0:
+        raise RuntimeError(f"sweep: band launches {band} (depth runs {depth_runs}), "
+                           f"full-search launches {full}")
+    if not _state_devices_ok(final[0], mesh):
+        raise RuntimeError("sweep: a state tensor is not on its rank's device of the card")
+    print(f"sweep: every state tensor of the {len(runs)} ranks on {mesh.devices[0]}",
+          flush=True)
+    return stores
+
+
+def _store_ba_phase(card, stores):
+    """Phase 11: the ring on the stores' window poses and point blocks, and
+    BA on each window, single and sharded over grid_mesh(1, 8). Returns the
+    ring's launches on the windows."""
+    cfg = fast_config()
+    c = cfg.camera
+    cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
+    W = min(5, min(int(st.count) for st in stores))
+    print(f"stores: keyframes {[int(st.count) for st in stores]}, window W={W}", flush=True)
+    if W < 2:
+        raise RuntimeError(f"stores hold too few keyframes for a BA window ({W})")
+    slots = [window_slots(st, W) for st in stores]
+    mesh = sequence_mesh(len(stores))
+
+    _reset_counts()  # count this path's launches only
+    poses = [st.pose[sl] for st, sl in zip(stores, slots)]
+    blocks = [torch.cat([st.xs[sl], st.ys[sl], st.inv_depth[sl], st.intensity[sl]], dim=1)
+              for st, sl in zip(stores, slots)]
+    got = (ring_exchange.gather_keyframe_poses(poses, mesh, axis="seq"),
+           ring_exchange.ring_all_gather(blocks, mesh, axis="seq"))
+    torch.cuda.synchronize()
+    _, _, ring = _counts()
+    for name, outs, shards in (("poses", got[0], poses), ("point blocks", got[1], blocks)):
+        plain = ring_exchange.ring_gather_plain(shards)
+        ok = all(torch.equal(o, p) for o, p in zip(outs, plain))
+        print(f"{'PASS' if ok else 'FAIL'}  ring on the window {name}: {len(shards)} ranks of "
+              f"{tuple(shards[0].shape)}, bitwise vs plain", flush=True)
+        if not ok:
+            raise RuntimeError(f"ring on the window {name} differs from its plain version")
+    if ring != 2:
+        raise RuntimeError(f"ring launches on the windows: {ring}, expected 2")
+
+    model = grid_mesh(1, 8)
+    for s, (st, sl) in enumerate(zip(stores, slots)):
+        problem = BAProblem(images=st.image[sl], xs=st.xs[sl], ys=st.ys[sl],
+                            inv_depth=st.inv_depth[sl], intensity=st.intensity[sl],
+                            point_valid=st.point_valid[sl], pose=st.pose[sl],
+                            kf_valid=st.occupied[sl])
+        for fix in (True, False):
+            bacfg = BAConfig(iters=4, fix_depths=fix, window=W)
+            t0 = time.perf_counter()
+            single = ba_solve(problem, cam, bacfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sharded = ba_solve_sharded(problem, cam, model, bacfg)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            dpose = float((sharded.pose - single.pose).abs().max())
+            dinv = (sharded.inv_depth - single.inv_depth).abs()
+            n1, n2 = int(single.num_residuals), int(sharded.num_residuals)
+            c0, c1 = float(single.cost_initial), float(single.cost_final)
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         (single.pose, single.inv_depth, sharded.pose, sharded.inv_depth))
+            ok = (finite and c1 <= c0
+                  and float(sharded.cost_final) <= float(sharded.cost_initial))
+            if fix:
+                # run_slam's BA (slam.py:112): held to ba_solve as
+                # tests/test_distributed.py:81-87 holds the reference.
+                ok = ok and dpose <= 2e-4 and float(dinv.max()) <= 1e-4 and n1 == n2
+                gates = "gated: dpose <= 2e-4, dinv <= 1e-4, equal residuals"
+            else:
+                # Free depths: lanes with a near-zero depth Hessian take steps
+                # of bd / Hdd that float32 rounding decides, so the single and
+                # the sharded solve part (the reference's own two do on such
+                # windows; ROADMAP C9). Gated on cost and finiteness only.
+                gates = (f"not gated against ba_solve (ROADMAP C9): "
+                         f"{int((dinv > 1e-4).sum())} lanes differ by > 1e-4")
+            print(f"{'PASS' if ok else 'FAIL'}  BA store {s} W={W} P={problem.xs.shape[1]} "
+                  f"fix_depths={fix}: cost {c0:.6f} -> {c1:.6f} (sharded "
+                  f"{float(sharded.cost_final):.6f}), residuals {n1}/{n2}, max|dpose|="
+                  f"{dpose:.3e}, max|dinv|={float(dinv.max()):.3e} ({gates}); ba_solve "
+                  f"{1e3 * (t1 - t0):.3f} ms, ba_solve_sharded (8 ranks) {1e3 * (t2 - t1):.3f} "
+                  f"ms [{card}]", flush=True)
+            if not ok:
+                raise RuntimeError(f"BA on store {s} (fix_depths={fix}) fails its gates")
+    return ring
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -476,8 +743,8 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    built = _build.build_all(["disparity_band", "disparity_full"])
-    print(f"build: both kernels in {time.perf_counter() - t0:.3f} s", flush=True)
+    built = _build.build_all(["disparity_band", "disparity_full", "ring_gather"])
+    print(f"build: all kernels in {time.perf_counter() - t0:.3f} s", flush=True)
     for name, (lib_path, seconds) in built.items():
         _build.load(name)
         print(f"build: {lib_path.name} in {seconds:.3f} s", flush=True)
@@ -507,13 +774,20 @@ def main() -> int:
     _timing("full", f"band [12, {W_KITTI}] lr",
             dict(boundary=4, min_disparity=MIN_D, max_disparity=W_KITTI, lr=True), card)
 
-    launches = {"band": _e2e(card), "full": _e2e_full_search(card)}
+    band_launches, e2e_runs, e2e_results = _e2e(card)
+    launches = {"band": band_launches, "full": _e2e_full_search(card)}
+
+    timing["ring"], errs["ring"] = _ring_phase(card)
+    stores = _sweep_phase(card, e2e_runs, e2e_results)
+    launches["ring"] = _store_ba_phase(card, stores)
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",
                  "odometry_tpu/kernels/disparity_pallas.py:124"),
         "full": ("disparity_full", "odometry_torch/csrc/disparity_full.cu",
                  "odometry_tpu/kernels/disparity_pallas.py:69"),
+        "ring": ("ring_gather", "odometry_torch/csrc/ring_gather.cu",
+                 "odometry_tpu/distributed/ring_exchange.py:47"),
     }
     print(json.dumps({"kernels": [{
         "name": name,
@@ -522,8 +796,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches[k],
         "max_abs_err": max(errs[k]),
-        **timing[k],
         "library_ms": None,
+        **timing[k],
     } for k, (name, source, replaces) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

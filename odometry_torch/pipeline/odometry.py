@@ -87,8 +87,9 @@ def _keyframe_track(pyr, dpyr, cfg: PipelineConfig) -> tuple:
 
 
 def init(left, right, cfg: PipelineConfig, init_pose=None, *,
-         device) -> tuple[OdometryState, torch.Tensor]:
-    """Initialize from frame 0 on `device`; returns (state, depth_ok).
+         device="cuda") -> tuple[OdometryState, torch.Tensor]:
+    """Initialize from frame 0 on `device` (the card unless the caller asks
+    for the CPU; raises without one); returns (state, depth_ok).
 
     `left`/`right` are (H, W) images (numpy or tensors), moved to `device`.
     """

@@ -43,9 +43,10 @@ def run_sequence(frames: Iterable, cfg: PipelineConfig, init_pose: np.ndarray | 
                  timer: StageTimer | None = None, checkpoint_path: str | None = None,
                  checkpoint_every: int = 0, resume: bool = False,
                  collect_vis: bool = False, debug_checks: bool = False, *,
-                 device) -> RunResult:
+                 device="cuda") -> RunResult:
     """Run odometry over an iterable of (left, right) float32 image pairs on
-    `device`. The first pair initializes (pose `init_pose` or identity)."""
+    `device` (the card unless the caller asks for the CPU; raises without
+    one). The first pair initializes (pose `init_pose` or identity)."""
     if checkpoint_path is not None or resume or debug_checks:
         raise NotImplementedError(
             "checkpoint/resume and debug_checks are not ported yet (ROADMAP A9)")

@@ -1,5 +1,5 @@
 """The port on an NVIDIA card: the band and full-search kernels, the dispatcher,
-and the CUDA path vs the CPU path.
+the CUDA path vs the CPU path, the ring all-gather kernel and the sharded BA.
 
 These tests need a CUDA card and nvcc, and skip elsewhere. They import
 neither jax nor the reference, so they run on a machine without JAX:
@@ -16,10 +16,19 @@ import torch
 from odometry_torch.camera.pinhole import Pinhole
 from odometry_torch.config import CameraConfig, fast_config
 from odometry_torch.data.synthetic import drive_trajectory, make_scene, render_stereo
+from odometry_torch.data.synthetic import render
 from odometry_torch.depth.estimator import compute_depth
+from odometry_torch.distributed import ring_exchange
+from odometry_torch.distributed.ba_dist import ba_solve_sharded
+from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh
+from odometry_torch.geometry import se3_exp
 from odometry_torch.image.pyramid import gaussian_blur3
+from odometry_torch.image.sampling import clip_gather_2d
 from odometry_torch.kernels import disparity_band, disparity_full
 from odometry_torch.kernels.disparity import disparity_winner_maps, pattern_stack
+from odometry_torch.kernels.points import extract_points
+from odometry_torch.kernels.select import select_points
+from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
 from odometry_torch.pipeline.runner import run_sequence
 
 pytestmark = pytest.mark.cuda
@@ -168,3 +177,95 @@ def test_run_sequence_cuda_matches_cpu(card):
     np.testing.assert_allclose(rc.poses[:, :3, 3], rp.poses[:, :3, 3], rtol=0, atol=0.05)
     err = np.linalg.norm(rc.poses[:, :3, 3] - poses[:, :3, 3], axis=1)
     assert err.mean() < 0.05
+
+
+# (ranks, chunk, inner): chip_smoke.py's phase-9 cases, the last the full
+# width of a 7-keyframe window of fast_config point blocks per rank.
+RING_CASES = [(1, 4, (128,)), (2, 3, (4, 4)), (3, 5, (4, 4)), (8, 4, (128,)), (8, 3, (4, 4)),
+              (8, 7, (16384,))]
+
+
+@pytest.mark.parametrize("num,chunk,inner", RING_CASES)
+def test_ring_kernel_matches_plain_bitwise(card, num, chunk, inner):
+    g = torch.Generator(device="cpu").manual_seed(num * 100 + chunk)
+    shards = [torch.randn((chunk,) + inner, generator=g).to(card) for _ in range(num)]
+    before = ring_exchange.LAUNCHES
+    outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num), axis="seq")
+    torch.cuda.synchronize()
+    assert ring_exchange.LAUNCHES == before + 1  # one launch per call
+    plain = ring_exchange.ring_gather_plain(shards)
+    full = torch.cat(shards)
+    for o, p in zip(outs, plain):
+        assert o.device == shards[0].device
+        assert torch.equal(o, p) and torch.equal(o, full)
+
+
+def test_ring_kernel_repeats_with_epoch_flags(card):
+    shards = [torch.randn((7, 16384), device=card) for _ in range(8)]
+    full = torch.cat(shards)
+    for _ in range(50):
+        outs = ring_exchange.ring_gather(shards, check=False)
+    ring_exchange.raise_on_error(card)
+    assert all(torch.equal(o, full) for o in outs)
+
+
+def test_ring_on_several_devices_raises_without_copying(card):
+    shards = [torch.ones((2, 8), device=card), torch.ones((2, 8))]
+    before = ring_exchange.LAUNCHES
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        ring_exchange.ring_gather(shards)
+    assert ring_exchange.LAUNCHES == before
+    assert torch.cuda.memory_allocated() == allocated
+    assert shards[1].device.type == "cpu"
+
+
+def _ba_problem(dev, K=4, P=512, H=96, W=160, seed=31, pose_noise=0.02):
+    """tests/test_ba.py's fixture built with the port: K views of a tilted
+    plane 0.35 m apart, P selected points each, poses 1..K-1 perturbed."""
+    cam = Pinhole.create(240.0, 240.0, W / 2.0, H / 2.0)
+    scene = make_scene(seed, depth=11.0, device="cpu")
+    rng = np.random.default_rng(seed)
+    poses, T = [], torch.eye(4)
+    for _ in range(K):
+        poses.append(T.clone())
+        xi = torch.tensor([0.35, 0.02 * rng.standard_normal(), 0.05, 0, 0.002, 0],
+                          dtype=torch.float32)
+        T = T @ se3_exp(xi)
+    imgs, xs, ys, inv, inten, valid = [], [], [], [], [], []
+    for k in range(K):
+        img, z = render(scene, cam, poses[k], H, W)
+        sel = select_points(gaussian_blur3(img), boundary=4, block_rows=8, block_cols=16,
+                            grad_th=8.0, max_points_per_block=80)
+        pts = extract_points(1.0 / z, sel, P)
+        imgs.append(img)
+        xs.append(pts.xs)
+        ys.append(pts.ys)
+        inv.append(pts.inv_depth)
+        inten.append(clip_gather_2d(img, pts.ys.long(), pts.xs.long()))
+        valid.append(pts.valid)
+    for k in range(1, K):
+        xi = torch.from_numpy(rng.standard_normal(6).astype(np.float32))
+        xi[:3] *= pose_noise
+        xi[3:] *= pose_noise * 0.1
+        poses[k] = poses[k] @ se3_exp(xi)
+    prob = BAProblem(torch.stack(imgs), torch.stack(xs), torch.stack(ys), torch.stack(inv),
+                     torch.stack(inten), torch.stack(valid), torch.stack(poses),
+                     torch.ones(K, dtype=torch.bool))
+    return BAProblem(*(a.to(dev) for a in prob)), cam
+
+
+@pytest.mark.parametrize("fix_depths", [True, False])
+def test_sharded_ba_on_the_card(card, fix_depths):
+    """ba_solve_sharded on 8 model ranks of one card against ba_solve there:
+    poses 2e-4, inverse depths 1e-4 (tests/test_distributed.py:81-87)."""
+    prob, cam = _ba_problem(card)
+    cfg = BAConfig(window=4, iters=3, fix_depths=fix_depths)
+    single = ba_solve(prob, cam, cfg)
+    sharded = ba_solve_sharded(prob, cam, grid_mesh(1, 8), cfg)
+    assert sharded.pose.is_cuda and sharded.inv_depth.is_cuda
+    torch.testing.assert_close(sharded.pose, single.pose, rtol=0, atol=2e-4)
+    torch.testing.assert_close(sharded.inv_depth, single.inv_depth, rtol=0, atol=1e-4)
+    assert int(sharded.num_residuals) == int(single.num_residuals) > 2000
+    assert float(single.cost_final) <= float(single.cost_initial)
