@@ -8,15 +8,19 @@ Phases, each of which raises on failure (so the script exits non-zero and
 prints no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build both SSD kernels from ``odometry_torch/csrc`` with nvcc, one
-   process each, started together (the band kernel B1 and the full-search
-   kernel B2);
-3. each kernel against its plain PyTorch version on the card: cases on
+2. build the three kernels from ``odometry_torch/csrc`` with nvcc, one
+   process each, started together (the band kernel B1, the full-search
+   kernel B2 and the all-gather B3), and print what ``-Xptxas -v`` says;
+3. each SSD kernel against its plain PyTorch version on the card: cases on
    selected pixels, dense every-pixel winner maps at KITTI size, and one
-   ``second_best`` case each, under the parity budgets below;
-4. kernel and plain-version times at the KITTI shape, with CUDA events:
-   B1 on fast_config's band, B2 on the full search and on accurate_config's
-   band [12, 1241];
+   ``second_best`` case each, under the parity budgets below; B2 against its
+   plain version bit for bit on ``tie_stereo_pair`` images (exact SSDs, exact
+   ties), and B2 with ``max_disparity=192`` against B1 bit for bit at KITTI
+   size (both score pairs with ``ssd8.cuh``);
+4. kernel and plain-version times at the KITTI shape: B1 on fast_config's
+   band, B2 on the full search and on accurate_config's band [12, 1241],
+   each as the device time of back-to-back calls and as CUDA events around
+   one call (which also hold the host's enqueue);
 5. the fast_config odometry path end to end at 376x1241 (the workload of
    ``bench.py``): 3 trajectory seeds x 49 frames rendered on the card with
    the texture phase rounded as bench.py's TPU rounded it (``tpu_phase_scene``),
@@ -29,10 +33,12 @@ prints no result line):
    every state tensor on the card, B2's launches against the depth runs;
 8. the dense tracking engine: kitti_config with ``engine="dense"``, seed 4,
    10 frames, B2's launches against the depth runs;
-9. the ring all-gather kernel B3 against its plain version and ``torch.cat``,
-   bit for bit, on meshes of 1 to 8 virtual ranks of the card, the full
-   width (8 ranks of 7 x 16384 float32) 200 times back to back, and the
-   kernel, plain-version and ``torch.cat`` times beside the bound;
+9. the all-gather kernel B3 against its plain version (the ring's schedule)
+   and ``torch.cat``, bit for bit, on meshes of 1 to 8 virtual ranks of the
+   card, shards of float32, float16 and int8 and at a 4-byte storage offset,
+   the full width (8 ranks of 7 x 16384 float32) 200 times back to back,
+   and the kernel, plain-version and ``torch.cat`` times beside the bound at
+   full width and above the L2 (8 ranks of 7 x 131072 float32);
 10. the sweep: ``run_sweep`` of fast_config on ``sequence_mesh(3)`` (three
     virtual ranks of the card) over phase 5's frames, gated as phase 5, with
     ``global_ok`` on every frame; one keyframe store per sequence filled as
@@ -68,6 +74,7 @@ from odometry_torch.data.synthetic import (
     make_driving_scene,
     make_scene,
     render_stereo,
+    tie_stereo_pair,
 )
 from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
@@ -109,6 +116,14 @@ SELECTED_LR_CASES = (("full", 376, 1241, MIN_D, W_KITTI, 0),)
 DENSE_CASES = (("band", 376, 1241, MIN_D, 192, 7), ("band", 376, 1241, MIN_D, 192, 0),
                ("full", 376, 1241, None, None, 7), ("full", 376, 1241, None, None, 0))
 SECOND_CASES = (("band", 376, 1241, MIN_D, 192, 0), ("full", 376, 1241, None, None, 0))
+# B2 against its plain version bit for bit on tie_stereo_pair images (exact
+# SSDs, exact ties a period apart): (H, W, min_disparity, max_disparity),
+# None the full search and "W" the image width.
+TIE_CASES = ((48, 96, None, None), (64, 384, None, None), (48, 96, MIN_D, "W"),
+             (64, 384, MIN_D, "W"), (376, 1241, None, None), (376, 1241, MIN_D, "W"))
+# B2 against B1 bit for bit on fast_config's band at KITTI size: both score
+# pairs with ssd8() (a guard on both kernels and on ssd8.cuh): seeds.
+BAND_EQUAL_SEEDS = (0, 7)
 # The H100's published peaks (NVIDIA data sheet, SXM): float32 outside the
 # tensor cores, and HBM3. One (x, xr) pair's SSD is about 24 float32
 # operations: 8 subtractions, 1 multiply, 7 fused multiply-adds counted as two.
@@ -277,6 +292,40 @@ def _dense_case(kernel, H, W, min_d, D, seed, failures, errs, second_best=False)
         failures.append(label)
 
 
+def _tie_case(H, W, min_d, max_d, failures):
+    """B2 against its plain version on tie_stereo_pair images, bit for bit."""
+    ls, rs = (torch.from_numpy(a).cuda() for a in tie_stereo_pair(H, W, seed=H + W))
+    kw = dict(boundary=4, min_disparity=min_d, max_disparity=W if max_d == "W" else max_d,
+              lr=True)
+    got = disparity_full.disparity_full(ls, rs, **kw)
+    want = disparity_full.disparity_full_plain(ls, rs, **kw)
+    torch.cuda.synchronize()
+    diffs = [int((a != b).sum()) for a, b in zip(got[:3], want[:3])]
+    ok = sum(diffs) == 0
+    label = f"full tie H{H} W{W} d[{min_d or 1},{max_d or 'W'}]"
+    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise vs plain, differing best/match/rmatch "
+          f"{diffs}", flush=True)
+    if not ok:
+        failures.append(label)
+
+
+def _band_equal_case(seed, failures):
+    """B2 with max_disparity=192 against B1 on the band [12, 192] at KITTI
+    size, bit for bit on all four maps."""
+    ls, rs = _stereo(*KITTI, seed)
+    kw = dict(boundary=4, min_disparity=MIN_D, max_disparity=192, lr=True, second_best=True)
+    full = disparity_full.disparity_full(ls, rs, **kw)
+    band = disparity_band.disparity_band(ls, rs, **kw)
+    torch.cuda.synchronize()
+    diffs = [int((a != b).sum()) for a, b in zip(full, band)]
+    ok = sum(diffs) == 0
+    label = f"full vs band H{KITTI[0]} W{KITTI[1]} d[{MIN_D},192] s{seed}"
+    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise, differing best/match/rmatch/second "
+          f"{diffs}", flush=True)
+    if not ok:
+        failures.append(label)
+
+
 def _time_ms(fn, reps):
     times = []
     for _ in range(reps):
@@ -311,18 +360,25 @@ def _bound(H, W, boundary, min_d, max_d, lr):
 
 
 def _timing(kernel, label, kw, card):
-    """Kernel and plain-version times at the KITTI shape (CUDA events)."""
+    """Kernel and plain-version times at the KITTI shape: device time per call
+    of back-to-back calls (`_device_ms`, the kernels line's numbers), and the
+    median of CUDA events around single calls, which also holds the host's
+    enqueue (ctypes, the output allocations)."""
     fn, plain = KERNELS[kernel]
     ls, rs = _stereo(*KITTI, 0)
     for _ in range(3):
         fn(ls, rs, **kw)
         plain(ls, rs, **kw)
-    ms = _time_ms(lambda: fn(ls, rs, **kw), 21)
-    plain_ms = _time_ms(lambda: plain(ls, rs, **kw), 7)
+    ms = _device_ms(lambda: fn(ls, rs, **kw), 50)
+    plain_ms = _device_ms(lambda: plain(ls, rs, **kw), 5)
+    ev_ms = _time_ms(lambda: fn(ls, rs, **kw), 21)
+    ev_plain_ms = _time_ms(lambda: plain(ls, rs, **kw), 7)
     bound_ms, bound_by = _bound(*KITTI, kw["boundary"], kw["min_disparity"],
                                 kw["max_disparity"], kw["lr"])
     print(f"timing {KITTI[0]}x{KITTI[1]} {kernel} {label}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) (median, CUDA events) "
+          f"{plain_ms:.4f} ms (device time of back-to-back calls); kernel {ev_ms:.4f} ms, plain "
+          f"{ev_plain_ms:.4f} ms (median of CUDA events around one call, host enqueue "
+          f"included); bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it "
           f"[{card}]", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -492,12 +548,31 @@ def _e2e_full_search(card):
     _check_state_on_card(runs[4][1], dense)
     return launches_acc + launches_kitti + launches_dense
 
-# Phase 9: (ranks, chunk, inner) of the ring cases; the last is the full
-# width, a 7-keyframe BA window of fast_config point blocks per rank (xs, ys,
-# inv_depth and intensity x 4096 lanes).
-RING_CASES = ((1, 4, (128,)), (2, 3, (4, 4)), (3, 5, (4, 4)), (8, 4, (128,)),
-              (8, 3, (4, 4)), (8, 7, (16384,)))
+# Phase 9: (ranks, shard shape, dtype, storage offset in elements) of the
+# ring cases. The float32 ones copy in 16-byte vectors, the last of them the
+# full width, a 7-keyframe BA window of fast_config point blocks per rank (xs,
+# ys, inv_depth and intensity x 4096 lanes); a 30-byte float16 shard, a
+# 35-byte int8 shard and a float32 shard 4 bytes into its storage take the
+# kernel's byte and 4-byte paths.
+RING_CASES = ((1, (4, 128), torch.float32, 0), (2, (3, 4, 4), torch.float32, 0),
+              (3, (5, 4, 4), torch.float32, 0), (8, (4, 128), torch.float32, 0),
+              (8, (3, 4, 4), torch.float32, 0), (3, (3, 5), torch.float16, 0),
+              (8, (5, 7), torch.int8, 0), (4, (6, 33), torch.float32, 1),
+              (8, (7, 16384), torch.float32, 0))
 RING_REPEATS = 200
+# A timing case above the 50 MB L2: 8 ranks of 7 x 131072 float32, 264 MB.
+RING_ABOVE_L2 = (8, (7, 131072))
+
+
+def _ring_shards(num, shape, dtype, offset, g):
+    n = int(np.prod(shape))
+    if dtype.is_floating_point:
+        base = [torch.randn(n + offset, generator=g, device="cuda").to(dtype)
+                for _ in range(num)]
+    else:
+        base = [torch.randint(-128, 128, (n + offset,), generator=g, device="cuda").to(dtype)
+                for _ in range(num)]
+    return [b[offset:].view(shape) for b in base]
 
 
 def _device_ms(fn, reps):
@@ -523,52 +598,63 @@ def _device_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def _ring_timing(shards, card, reps):
+    """Kernel, plain-version and torch.cat x num device times of one all-gather
+    of `shards`, beside the bound."""
+    num = len(shards)
+    nbytes = shards[0].numel() * shards[0].element_size()
+    ms = _device_ms(lambda: ring_exchange.ring_gather(shards), reps)
+    plain_ms = _device_ms(lambda: ring_exchange.ring_gather_plain(shards), 5)
+    library_ms = _device_ms(lambda: [torch.cat(shards) for _ in range(num)], reps)
+    # Least bytes an all-gather on one card moves: every shard read once,
+    # every rank's output written once.
+    moved = num * nbytes + num * num * nbytes
+    bound_ms = 1e3 * moved / PEAK_BYTES_PER_S
+    print(f"timing ring ranks={num} shard={tuple(shards[0].shape)} {shards[0].dtype}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cat x{num} {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes: {moved} B), {100 * bound_ms / ms:.1f}% of it (device time "
+          f"of back-to-back calls, CUDA events) [{card}]", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=library_ms)
+
+
 def _ring_phase(card):
     """Phase 9: B3 against its plain version and torch.cat, bit for bit;
-    RING_REPEATS back-to-back launches at full width; times at full width.
-    Returns (timing entry, [max |kernel - plain| per case])."""
+    RING_REPEATS back-to-back launches at full width; times at full width and
+    above the L2. Returns (full-width timing entry, [max |kernel - plain| per
+    case])."""
     g = torch.Generator(device="cuda").manual_seed(9)
     errs = []
-    for num, chunk, inner in RING_CASES:
-        shards = [torch.randn((chunk,) + inner, generator=g, device="cuda") for _ in range(num)]
+    for num, shape, dtype, offset in RING_CASES:
+        shards = _ring_shards(num, shape, dtype, offset, g)
         outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num), axis="seq")
         torch.cuda.synchronize()
         plain = ring_exchange.ring_gather_plain(shards)
         full = torch.cat(shards)
         ok = all(torch.equal(o, p) and torch.equal(o, full) for o, p in zip(outs, plain))
-        errs.append(max(float((o - p).abs().max()) for o, p in zip(outs, plain)))
-        print(f"{'PASS' if ok else 'FAIL'}  ring ranks={num} chunk={chunk} inner={inner}: "
-              f"bitwise vs plain and torch.cat, max|diff|={errs[-1]}", flush=True)
+        errs.append(max(float((o.double() - p.double()).abs().max()) for o, p in zip(outs, plain)))
+        label = f"ring ranks={num} shard={shape} {dtype} offset={offset}"
+        print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise vs plain and torch.cat, "
+              f"max|diff|={errs[-1]}", flush=True)
         if not ok:
-            raise RuntimeError(f"ring_gather differs from its plain version at {num, chunk, inner}")
+            raise RuntimeError(f"ring_gather differs from its plain version at {label}")
 
-    # The epoch flags: the full-width case (the last, whose shards these
-    # are) RING_REPEATS times back to back, no host read between launches;
-    # mismatches are counted on the card.
+    # The full-width case (the last, whose shards these are) RING_REPEATS
+    # times back to back, no host read between launches; every output is
+    # compared on the card.
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     for _ in range(RING_REPEATS):
-        outs = ring_exchange.ring_gather(shards, check=False)
+        outs = ring_exchange.ring_gather(shards)
         bad = bad + torch.stack([(o != full).any() for o in outs]).sum()
-    ring_exchange.raise_on_error(card)
-    print(f"ring: {RING_REPEATS} back-to-back launches at ranks={num} chunk={chunk} "
-          f"inner={inner}: {int(bad)} outputs differ", flush=True)
+    print(f"ring: {RING_REPEATS} back-to-back launches at ranks={num} shard={shape}: "
+          f"{int(bad)} outputs differ", flush=True)
     if int(bad) != 0:
         raise RuntimeError(f"ring_gather: {int(bad)} outputs of {RING_REPEATS} repeats differ")
 
-    nbytes = shards[0].numel() * shards[0].element_size()
-    ms = _device_ms(lambda: ring_exchange.ring_gather(shards, check=False), 100)
-    plain_ms = _device_ms(lambda: ring_exchange.ring_gather_plain(shards), 5)
-    library_ms = _device_ms(lambda: [torch.cat(shards) for _ in range(num)], 20)
-    ring_exchange.raise_on_error(card)
-    # Least bytes an all-gather on one card moves: every shard read once,
-    # every rank's output written once.
-    bound_ms = 1e3 * (num * nbytes + num * num * nbytes) / PEAK_BYTES_PER_S
-    print(f"timing ring ranks={num} chunk={chunk} inner={inner} float32: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.cat x{num} {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms (bytes: {num * nbytes + num * num * nbytes} B) (device time of "
-          f"back-to-back calls, CUDA events) [{card}]", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=library_ms), errs
+    timing = _ring_timing(shards, card, 100)
+    num, shape = RING_ABOVE_L2
+    _ring_timing([torch.randn(shape, generator=g, device="cuda") for _ in range(num)], card, 20)
+    return timing, errs
 
 
 def _state_devices_ok(states, mesh) -> bool:
@@ -762,6 +848,10 @@ def main() -> int:
         _dense_case(*case, failures, errs)
     for case in SECOND_CASES:
         _dense_case(*case, failures, errs, second_best=True)
+    for case in TIE_CASES:
+        _tie_case(*case, failures)
+    for seed in BAND_EQUAL_SEEDS:
+        _band_equal_case(seed, failures)
     if failures:
         raise RuntimeError(f"kernel parity failed: {failures}")
 

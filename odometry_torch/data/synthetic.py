@@ -2,7 +2,8 @@
 ``data/synthetic.py``: ``PlaneScene``, ``MultiPlaneScene``, ``make_scene``,
 ``make_driving_scene``, ``make_natural_scene``, ``render``, ``render_stereo``,
 ``right_camera_pose``, ``drive_trajectory``, ``stereo_sequence`` and the
-photometric nuisance model).
+photometric nuisance model), and ``tie_stereo_pair``, the port's own
+integer-valued pair for exact winner-map parity.
 
 The scene makers make the same numpy ``default_rng`` draws as the
 reference, so a scene's parameters are bit-identical for a seed; they are
@@ -344,3 +345,19 @@ def stereo_sequence(scene, cam: Pinhole, baseline: float, poses: np.ndarray, hei
     for T in poses:
         left, right, _ = render_stereo(scene, cam, baseline, T, height, width)
         yield left.cpu().numpy(), right.cpu().numpy()
+
+
+TIE_PERIOD = 24
+
+
+def tie_stereo_pair(height: int, width: int, seed: int = 0) -> tuple:
+    """An integer-valued stereo pair (values 0-15, float32 numpy) periodic in
+    x: each row repeats a random run of TIE_PERIOD values, and the right
+    image is the left shifted by 5 columns. Every 8-point SSD is an integer
+    below 2**24, exact in float32 whether summed directly or as a norm
+    expansion, and each query ties exactly with the candidates a period
+    apart, so only the first-minimum rule decides the winners."""
+    rng = np.random.default_rng(seed)
+    runs = rng.integers(0, 16, size=(height, TIE_PERIOD))
+    left = np.tile(runs, (1, width // TIE_PERIOD + 1))[:, :width].astype(np.float32)
+    return left, np.ascontiguousarray(np.roll(left, -5, axis=1))

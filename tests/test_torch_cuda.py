@@ -16,7 +16,7 @@ import torch
 from odometry_torch.camera.pinhole import Pinhole
 from odometry_torch.config import CameraConfig, fast_config
 from odometry_torch.data.synthetic import drive_trajectory, make_scene, render_stereo
-from odometry_torch.data.synthetic import render
+from odometry_torch.data.synthetic import render, tie_stereo_pair
 from odometry_torch.depth.estimator import compute_depth
 from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
@@ -110,6 +110,38 @@ def test_full_kernel_matches_plain(card, shape, band):
                                 max_disparity=band[1], lr=True, second_best=True)
 
 
+@pytest.mark.parametrize("band", [(None, None), (12, "W")])
+@pytest.mark.parametrize("shape", [(48, 96), (64, 384)])
+def test_full_kernel_equals_plain_on_exact_ties(card, shape, band):
+    """On ``tie_stereo_pair`` images every SSD is exact in both forms and
+    ties a period apart: the kernel's packed-key reductions must pick the
+    plain version's first minima, bit for bit (best, match, rmatch)."""
+    H, W = shape
+    ls, rs = (torch.from_numpy(a).to(card) for a in tie_stereo_pair(H, W, seed=H + W))
+    kw = dict(boundary=4, min_disparity=band[0],
+              max_disparity=W if band[1] == "W" else band[1], lr=True)
+    got = disparity_full.disparity_full(ls, rs, **kw)
+    want = disparity_full.disparity_full_plain(ls, rs, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_full_kernel_equals_band_kernel(card, tie):
+    """Both kernels score pairs with ssd8(): on one band they agree bit for
+    bit on best, match, rmatch and second."""
+    H, W = 64, 384
+    if tie:
+        ls, rs = (torch.from_numpy(a).to(card) for a in tie_stereo_pair(H, W, seed=3))
+    else:
+        ls, rs = _stereo(H, W, 7, card)
+    kw = dict(boundary=4, min_disparity=12, max_disparity=192, lr=True, second_best=True)
+    full = disparity_full.disparity_full(ls, rs, **kw)
+    band = disparity_band.disparity_band(ls, rs, **kw)
+    for a, b in zip(full, band):
+        assert torch.equal(a, b)
+
+
 def test_full_kernel_refuses_what_it_does_not_take(card):
     ls, rs = _stereo(48, 96, 0, card)
     kw = dict(boundary=4, min_disparity=None, max_disparity=None, lr=False)
@@ -179,16 +211,33 @@ def test_run_sequence_cuda_matches_cpu(card):
     assert err.mean() < 0.05
 
 
-# (ranks, chunk, inner): chip_smoke.py's phase-9 cases, the last the full
-# width of a 7-keyframe window of fast_config point blocks per rank.
-RING_CASES = [(1, 4, (128,)), (2, 3, (4, 4)), (3, 5, (4, 4)), (8, 4, (128,)), (8, 3, (4, 4)),
-              (8, 7, (16384,))]
+# (ranks, shard shape, dtype, storage offset in elements): chip_smoke.py's
+# phase-9 cases. The float32 ones copy in 16-byte vectors, the last of them
+# the full width of a 7-keyframe window of fast_config point blocks per rank;
+# a 30-byte float16 shard, a 35-byte int8 shard and a float32 shard 4 bytes
+# into its storage take the kernel's byte and 4-byte paths.
+RING_CASES = [(1, (4, 128), torch.float32, 0), (2, (3, 4, 4), torch.float32, 0),
+              (3, (5, 4, 4), torch.float32, 0), (8, (4, 128), torch.float32, 0),
+              (8, (3, 4, 4), torch.float32, 0), (8, (7, 16384), torch.float32, 0),
+              (3, (3, 5), torch.float16, 0), (8, (5, 7), torch.int8, 0),
+              (4, (6, 33), torch.float32, 1)]
 
 
-@pytest.mark.parametrize("num,chunk,inner", RING_CASES)
-def test_ring_kernel_matches_plain_bitwise(card, num, chunk, inner):
-    g = torch.Generator(device="cpu").manual_seed(num * 100 + chunk)
-    shards = [torch.randn((chunk,) + inner, generator=g).to(card) for _ in range(num)]
+def _ring_shards(num, shape, dtype, offset, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = int(np.prod(shape))
+    if dtype.is_floating_point:
+        base = [torch.randn(n + offset, generator=g).to(dtype) for _ in range(num)]
+    else:
+        base = [torch.randint(-128, 128, (n + offset,), generator=g).to(dtype)
+                for _ in range(num)]
+    return [b.to(dev)[offset:].view(shape) for b in base]
+
+
+@pytest.mark.parametrize("num,shape,dtype,offset", RING_CASES)
+def test_ring_kernel_matches_plain_bitwise(card, num, shape, dtype, offset):
+    shards = _ring_shards(num, shape, dtype, offset, card, seed=num * 100 + shape[0])
+    assert shards[0].storage_offset() == offset
     before = ring_exchange.LAUNCHES
     outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num), axis="seq")
     torch.cuda.synchronize()
@@ -196,17 +245,19 @@ def test_ring_kernel_matches_plain_bitwise(card, num, chunk, inner):
     plain = ring_exchange.ring_gather_plain(shards)
     full = torch.cat(shards)
     for o, p in zip(outs, plain):
-        assert o.device == shards[0].device
+        assert o.device == shards[0].device and o.dtype == dtype
         assert torch.equal(o, p) and torch.equal(o, full)
 
 
-def test_ring_kernel_repeats_with_epoch_flags(card):
+def test_ring_kernel_repeats_back_to_back(card):
+    """200 launches with no host read between them; every output of every
+    launch is compared on the card."""
     shards = [torch.randn((7, 16384), device=card) for _ in range(8)]
     full = torch.cat(shards)
-    for _ in range(50):
-        outs = ring_exchange.ring_gather(shards, check=False)
-    ring_exchange.raise_on_error(card)
-    assert all(torch.equal(o, full) for o in outs)
+    bad = torch.zeros((), dtype=torch.int64, device=card)
+    for _ in range(200):
+        bad += sum((o != full).any().long() for o in ring_exchange.ring_gather(shards))
+    assert int(bad) == 0
 
 
 def test_ring_on_several_devices_raises_without_copying(card):

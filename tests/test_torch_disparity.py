@@ -297,3 +297,31 @@ def test_golden_model_matches_plain_full_search():
                        (xs - rt.disparity.numpy()[ys, xs]).astype(int)) < TIE).all()
     np.testing.assert_allclose(rt.best_ssd.numpy()[both], best[both], rtol=512 * 2.0**-23,
                                atol=1.0)
+
+
+@pytest.mark.parametrize("band", [(None, None), (12, "W")])
+@pytest.mark.parametrize("shape", [(48, 96), (64, 384)])
+def test_plain_matches_xla_bitwise_on_exact_ties(shape, band):
+    """Integer-valued periodic images (``tie_stereo_pair``): every SSD is
+    exact in float32 in both norm expansions, and each query ties exactly
+    with candidates a period apart, so the first-minimum rule alone picks
+    the winners. best, match and rmatch agree bit for bit, lr on. The CUDA
+    kernel is held to the plain version on the same images on the card
+    (tests/test_torch_cuda.py, chip_smoke.py)."""
+    from odometry_torch.data.synthetic import TIE_PERIOD, tie_stereo_pair
+
+    h, w = shape
+    ls, rs = tie_stereo_pair(h, w, seed=h + w)
+    min_d, max_d = band[0], (w if band[1] == "W" else band[1])
+    kw = dict(boundary=4, min_disparity=min_d, max_disparity=max_d, lr_check=True)
+    ref = jd.disparity_winner_maps(jnp.asarray(ls), jnp.asarray(rs), backend="xla", **kw)
+    port = td.disparity_winner_maps(_t(ls), _t(rs), **kw)
+    for r, p in zip(ref[:3], port[:3]):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+    # The images do tie: at many queries the candidate a period past the
+    # winner scores the winner's SSD exactly, and the smaller index won.
+    best, match = port[0].numpy(), port[1].numpy()
+    PL, PR = (td.pattern_stack(_t(a)).numpy() for a in (ls, rs))
+    ys, xs = np.nonzero((best < 1e9) & (match + TIE_PERIOD <= np.arange(w) - (min_d or 1)))
+    other = np.sum((PL[:, ys, xs] - PR[:, ys, match[ys, xs] + TIE_PERIOD]) ** 2, axis=0)
+    assert (other == best[ys, xs]).sum() > 0.25 * h * w

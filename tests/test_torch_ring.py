@@ -8,6 +8,8 @@ hop-origin bookkeeping itself. The kernel is held to the plain version on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import math
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -86,3 +88,34 @@ def test_ring_gather_on_cpu_is_the_plain_version():
     for o, p in zip(outs, tr.ring_gather_plain(shards)):
         assert torch.equal(o, p)
     assert tr.LAUNCHES == before  # the kernel runs only on the card
+
+
+def ring_shards(num, shape, dtype, offset, seed):
+    """`num` shards of `shape` and `dtype`, each a contiguous view `offset`
+    elements into its storage (the card's kernel then copies in 4-byte words
+    or bytes instead of 16-byte vectors)."""
+    g = torch.Generator().manual_seed(seed)
+    n = math.prod(shape)
+    if dtype.is_floating_point:
+        base = [torch.randn(n + offset, generator=g).to(dtype) for _ in range(num)]
+    else:
+        base = [torch.randint(-128, 128, (n + offset,), generator=g).to(dtype)
+                for _ in range(num)]
+    return [b[offset:].view(shape) for b in base]
+
+
+# (ranks, shape, dtype, offset): shard sizes of 30 B (float16), 35 B (int8)
+# and a float32 shard 4 bytes into its storage; tests/test_torch_cuda.py and
+# chip_smoke.py run the same on the card.
+ODD_CASES = [(3, (3, 5), torch.float16, 0), (8, (5, 7), torch.int8, 0),
+             (4, (6, 33), torch.float32, 1)]
+
+
+@pytest.mark.parametrize("num,shape,dtype,offset", ODD_CASES)
+def test_ring_gather_other_dtypes_and_offsets(num, shape, dtype, offset):
+    shards = ring_shards(num, shape, dtype, offset, seed=num)
+    assert shards[0].is_contiguous() and shards[0].storage_offset() == offset
+    outs = tr.ring_gather(shards)
+    assert len(outs) == num
+    for o in outs:
+        assert o.dtype == dtype and torch.equal(o, torch.cat(shards))
