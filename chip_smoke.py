@@ -13,14 +13,17 @@ prints no result line):
    kernel B2 and the all-gather B3), and print what ``-Xptxas -v`` says;
 3. each SSD kernel against its plain PyTorch version on the card: cases on
    selected pixels, dense every-pixel winner maps at KITTI size, and one
-   ``second_best`` case each, under the parity budgets below; B2 against its
-   plain version bit for bit on ``tie_stereo_pair`` images (exact SSDs, exact
-   ties), and B2 with ``max_disparity=192`` against B1 bit for bit at KITTI
-   size (both score pairs with ``ssd8.cuh``);
+   ``second_best`` case each, under the parity budgets below; B1 and B2
+   against their plain version bit for bit on ``tie_stereo_pair`` images
+   (exact SSDs, exact ties; B1 also on a band narrower than its blocking's
+   spread and at widths that are not a multiple of 128), and B2 with
+   ``max_disparity=192`` against B1 bit for bit at KITTI size (both score
+   pairs with ``ssd8.cuh``);
 4. kernel and plain-version times at the KITTI shape: B1 on fast_config's
-   band, B2 on the full search and on accurate_config's band [12, 1241],
-   each as the device time of back-to-back calls and as CUDA events around
-   one call (which also hold the host's enqueue);
+   band (and B2 on the same band beside it), B2 on the full search and on
+   accurate_config's band [12, 1241], each as the device time of
+   back-to-back calls and as CUDA events around one call (which also hold
+   the host's enqueue);
 5. the fast_config odometry path end to end at 376x1241 (the workload of
    ``bench.py``): 3 trajectory seeds x 49 frames rendered on the card with
    the texture phase rounded as bench.py's TPU rounded it (``tpu_phase_scene``),
@@ -116,11 +119,16 @@ SELECTED_LR_CASES = (("full", 376, 1241, MIN_D, W_KITTI, 0),)
 DENSE_CASES = (("band", 376, 1241, MIN_D, 192, 7), ("band", 376, 1241, MIN_D, 192, 0),
                ("full", 376, 1241, None, None, 7), ("full", 376, 1241, None, None, 0))
 SECOND_CASES = (("band", 376, 1241, MIN_D, 192, 0), ("full", 376, 1241, None, None, 0))
-# B2 against its plain version bit for bit on tie_stereo_pair images (exact
-# SSDs, exact ties a period apart): (H, W, min_disparity, max_disparity),
-# None the full search and "W" the image width.
-TIE_CASES = ((48, 96, None, None), (64, 384, None, None), (48, 96, MIN_D, "W"),
-             (64, 384, MIN_D, "W"), (376, 1241, None, None), (376, 1241, MIN_D, "W"))
+# B1 and B2 against their plain version bit for bit on tie_stereo_pair images
+# (exact SSDs, exact ties a period apart): (kernel, H, W, min_disparity,
+# max_disparity), None the full search and "W" the image width. B1's [12, 28]
+# is narrower than its blocking's spread (24 offsets), [12, 40] just wider.
+TIE_CASES = (("full", 48, 96, None, None), ("full", 64, 384, None, None),
+             ("full", 48, 96, MIN_D, "W"), ("full", 64, 384, MIN_D, "W"),
+             ("full", 376, 1241, None, None), ("full", 376, 1241, MIN_D, "W"),
+             ("band", 48, 256, None, 64), ("band", 64, 384, MIN_D, 192),
+             ("band", 376, 1241, MIN_D, 192), ("band", 48, 200, MIN_D, 40),
+             ("band", 48, 200, MIN_D, 28))
 # B2 against B1 bit for bit on fast_config's band at KITTI size: both score
 # pairs with ssd8() (a guard on both kernels and on ssd8.cuh): seeds.
 BAND_EQUAL_SEEDS = (0, 7)
@@ -292,17 +300,18 @@ def _dense_case(kernel, H, W, min_d, D, seed, failures, errs, second_best=False)
         failures.append(label)
 
 
-def _tie_case(H, W, min_d, max_d, failures):
-    """B2 against its plain version on tie_stereo_pair images, bit for bit."""
+def _tie_case(kernel, H, W, min_d, max_d, failures):
+    """A kernel against its plain version on tie_stereo_pair images, bit for bit."""
     ls, rs = (torch.from_numpy(a).cuda() for a in tie_stereo_pair(H, W, seed=H + W))
     kw = dict(boundary=4, min_disparity=min_d, max_disparity=W if max_d == "W" else max_d,
               lr=True)
-    got = disparity_full.disparity_full(ls, rs, **kw)
-    want = disparity_full.disparity_full_plain(ls, rs, **kw)
+    fn, plain = KERNELS[kernel]
+    got = fn(ls, rs, **kw)
+    want = plain(ls, rs, **kw)
     torch.cuda.synchronize()
     diffs = [int((a != b).sum()) for a, b in zip(got[:3], want[:3])]
     ok = sum(diffs) == 0
-    label = f"full tie H{H} W{W} d[{min_d or 1},{max_d or 'W'}]"
+    label = f"{kernel} tie H{H} W{W} d[{min_d or 1},{max_d or 'W'}]"
     print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise vs plain, differing best/match/rmatch "
           f"{diffs}", flush=True)
     if not ok:
@@ -363,7 +372,8 @@ def _timing(kernel, label, kw, card):
     """Kernel and plain-version times at the KITTI shape: device time per call
     of back-to-back calls (`_device_ms`, the kernels line's numbers), and the
     median of CUDA events around single calls, which also holds the host's
-    enqueue (ctypes, the output allocations)."""
+    enqueue (ctypes, the output allocations). For B1 also B2's device time on
+    the same band, the port's other kernel for it (not a library call)."""
     fn, plain = KERNELS[kernel]
     ls, rs = _stereo(*KITTI, 0)
     for _ in range(3):
@@ -375,11 +385,15 @@ def _timing(kernel, label, kw, card):
     ev_plain_ms = _time_ms(lambda: plain(ls, rs, **kw), 7)
     bound_ms, bound_by = _bound(*KITTI, kw["boundary"], kw["min_disparity"],
                                 kw["max_disparity"], kw["lr"])
+    beside = ""
+    if kernel == "band":
+        full_ms = _device_ms(lambda: disparity_full.disparity_full(ls, rs, **kw), 50)
+        beside = f"; B2 on the same band {full_ms:.4f} ms (device time)"
     print(f"timing {KITTI[0]}x{KITTI[1]} {kernel} {label}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms (device time of back-to-back calls); kernel {ev_ms:.4f} ms, plain "
           f"{ev_plain_ms:.4f} ms (median of CUDA events around one call, host enqueue "
-          f"included); bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it "
-          f"[{card}]", flush=True)
+          f"included); bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it"
+          f"{beside} [{card}]", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 

@@ -26,6 +26,15 @@ import torch
 BIG = 1e10
 _ROW_CHUNK = 8  # rows per (rows, W, W) cost volume of the plain version
 
+# Shared memory a block may use on the H100 (232,448 bytes). Both kernels run
+# one block per row (csrc/ssd_row.cuh), which keeps one 8-byte winner key per
+# query column and, with lr, one per candidate column, and the right image's
+# 8 pattern values per candidate column as two 16-byte planes; candidate
+# columns are padded by _PAD on each side (a group of 4 x 32 columns,
+# Blocking::kPad), and the key count is rounded up to even.
+_SMEM_LIMIT = 232448
+_PAD = 128
+
 # Kernel launches made by disparity_band(); tests and chip_smoke.py read it to
 # show a run went through the kernel.
 LAUNCHES = 0
@@ -96,21 +105,31 @@ def check_images(name: str, left_s: torch.Tensor, right_s: torch.Tensor):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def staged_bytes(width: int, lr: bool) -> int:
+    """Dynamic shared memory of one block of either kernel at image width `width`."""
+    keys = (width + (width + 2 * _PAD if lr else 0) + 1) & ~1
+    return 8 * keys + 32 * (width + 2 * _PAD)
+
+
 def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
            min_d: int, max_d: int, lr: bool, second_best: bool, second_excl: int):
     """Launch ``<name>_launch`` of ``csrc/<name>.cu`` on the current stream
     (no synchronise) and return its ``(best, match, rmatch, second)``.
 
     The band and the full-search kernels share this C signature. Inputs are
-    checked by the caller; raises if the launch is refused.
+    checked by the caller; raises on a width whose keys and planes exceed a
+    block's shared memory, or if the launch is refused.
     """
     from odometry_torch.kernels import _build
 
+    H, W = left_s.shape
+    if staged_bytes(W, lr) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: width {W} needs {staged_bytes(W, lr)} B of shared memory "
+                         f"per block, more than the {_SMEM_LIMIT} B a block can use")
     fn = getattr(_build.load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
-    H, W = left_s.shape
     dev = left_s.device
     best = torch.empty((H, W), dtype=torch.float32, device=dev)
     match = torch.empty((H, W), dtype=torch.int32, device=dev)
@@ -137,8 +156,11 @@ def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
     """Launch the CUDA band kernel on the current stream (no synchronise).
 
     `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images). Raises on anything the kernel does not take, or if the launch
-    is refused.
+    images). Raises on anything the kernel does not take (a width whose keys
+    and pattern planes exceed a block's shared memory among them, about 4,600
+    columns), or if the launch is refused. Forward and reverse winners come
+    from one pass over the pairs, bit for bit those of a strict-< ascending
+    scan of each column.
     """
     global LAUNCHES
     check_images("disparity_band", left_s, right_s)

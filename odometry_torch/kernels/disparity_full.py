@@ -28,20 +28,6 @@ from odometry_torch.kernels.disparity_band import (  # noqa: F401  (re-exported)
 # show a run went through the kernel.
 LAUNCHES = 0
 
-# Shared memory a block may use on the H100 (232,448 bytes). The kernel
-# keeps one 8-byte winner key per query column and, with lr, one per
-# candidate column, and the right image's 8 pattern values per candidate
-# column as two 16-byte planes; candidate columns are padded by _PAD on each
-# side (csrc/disparity_full.cu:kPad), and the key count is rounded up to even.
-_SMEM_LIMIT = 232448
-_PAD = 32
-
-
-def staged_bytes(width: int, lr: bool) -> int:
-    """Dynamic shared memory of one block at image width `width`."""
-    keys = (width + (width + 2 * _PAD if lr else 0) + 1) & ~1
-    return 8 * keys + 32 * (width + 2 * _PAD)
-
 
 def disparity_full(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
                    min_disparity: int | None, max_disparity: int | None, lr: bool,
@@ -49,17 +35,15 @@ def disparity_full(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
     """Launch the CUDA full-search kernel on the current stream (no synchronise).
 
     `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images). Raises on anything the kernel does not take (a width whose
-    staged rows exceed a block's shared memory among them), or if the launch
-    is refused. Forward and reverse winners come from one pass over the
-    pairs, bit for bit those of a strict-< ascending scan of each column.
+    images). Raises on anything the kernel does not take (a width whose keys
+    and pattern planes exceed a block's shared memory among them, about 4,600
+    columns), or if the launch is refused. Forward and reverse winners come
+    from one pass over the pairs, bit for bit those of a strict-< ascending
+    scan of each column.
     """
     global LAUNCHES
     check_images("disparity_full", left_s, right_s)
     W = left_s.shape[1]
-    if staged_bytes(W, lr) > _SMEM_LIMIT:
-        raise ValueError(f"disparity_full: width {W} needs {staged_bytes(W, lr)} B of shared "
-                         f"memory per block, more than the {_SMEM_LIMIT} B a block can use")
     min_d = _min_d(min_disparity)
     max_d = W if max_disparity is None else int(max_disparity)
     if max_d < min_d:

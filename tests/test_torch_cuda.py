@@ -126,6 +126,25 @@ def test_full_kernel_equals_plain_on_exact_ties(card, shape, band):
         assert torch.equal(a, b)
 
 
+# (H, W, min_disparity, max_disparity): fast_config-style bands, the KITTI
+# shape, widths that are not a multiple of 128, and a band ([12, 28]) narrower
+# than the band kernel's blocking's spread of 24 offsets.
+BAND_TIE_CASES = [(48, 256, None, 64), (64, 384, 12, 192), (376, 1241, 12, 192),
+                  (48, 200, 12, 40), (48, 200, 12, 28)]
+
+
+@pytest.mark.parametrize("H,W,min_d,max_d", BAND_TIE_CASES)
+def test_band_kernel_equals_plain_on_exact_ties(card, H, W, min_d, max_d):
+    """The band kernel's packed-key reductions pick the plain version's first
+    minima on ``tie_stereo_pair`` images, bit for bit (best, match, rmatch)."""
+    ls, rs = (torch.from_numpy(a).to(card) for a in tie_stereo_pair(H, W, seed=H + W))
+    kw = dict(boundary=4, min_disparity=min_d, max_disparity=max_d, lr=True)
+    got = disparity_band.disparity_band(ls, rs, **kw)
+    want = disparity_band.disparity_band_plain(ls, rs, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("tie", [False, True])
 def test_full_kernel_equals_band_kernel(card, tie):
     """Both kernels score pairs with ssd8(): on one band they agree bit for
@@ -176,6 +195,9 @@ def test_band_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         disparity_band.disparity_band(ls, rs, boundary=4, min_disparity=80, max_disparity=64,
                                       lr=False)
+    wide = torch.zeros((8, 6000), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        disparity_band.disparity_band(wide, wide, **kw)
 
 
 def test_compute_depth_cuda_matches_cpu(card):

@@ -299,15 +299,16 @@ def test_golden_model_matches_plain_full_search():
                                atol=1.0)
 
 
-@pytest.mark.parametrize("band", [(None, None), (12, "W")])
+@pytest.mark.parametrize("band", [(None, None), (12, "W"), (12, 64), (12, 192)])
 @pytest.mark.parametrize("shape", [(48, 96), (64, 384)])
 def test_plain_matches_xla_bitwise_on_exact_ties(shape, band):
     """Integer-valued periodic images (``tie_stereo_pair``): every SSD is
     exact in float32 in both norm expansions, and each query ties exactly
     with candidates a period apart, so the first-minimum rule alone picks
-    the winners. best, match and rmatch agree bit for bit, lr on. The CUDA
-    kernel is held to the plain version on the same images on the card
-    (tests/test_torch_cuda.py, chip_smoke.py)."""
+    the winners. best, match and rmatch agree bit for bit, lr on, on the full
+    search, accurate_config's band and fast_config-style narrow bands. Both
+    CUDA kernels are held to the plain version on the same images on the
+    card (tests/test_torch_cuda.py, chip_smoke.py)."""
     from odometry_torch.data.synthetic import TIE_PERIOD, tie_stereo_pair
 
     h, w = shape
