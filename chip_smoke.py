@@ -51,10 +51,22 @@ prints no result line):
     ``run_slam`` runs it) and with free depths, and ``ba_solve_sharded`` on
     ``grid_mesh(1, 8)``: motion-only held to ``ba_solve`` within 2e-4 (poses)
     and 1e-4 (inverse depths), free depths on cost and finiteness (ROADMAP
-    C9).
+    C9);
+12. ``run_slam`` at 376x1241 on the loop fixture of
+    ``tools/verify_loop_closure_tpu.py`` (fast_config with
+    ``motion_threshold=0.4``, ``make_driving_scene(3, side_x=20, wall_z=26)``,
+    49 frames out and back in steps of 0.35 m), odometry only and with BA
+    every 2 keyframes and loop closure: no depth failure, at least one
+    closure, a SLAM endpoint error below 0.2 m and no larger than the
+    odometry's, B1 launched once per depth run and B2 and B3 never.
+
+Phase 3 also holds the tiled route of B1 and B2 (rows too wide for one
+block's shared memory, ROADMAP C10) bit for bit against the plain version at
+8x6000 and against the one-block route at 376x1241, and times it at 376x6000
+and 376x1241 (reported, not gated).
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. The second-to-last line is a JSON object describing each kernel; the
+after; a call on the tiled route counts its three launches. The second-to-last line is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -90,8 +102,10 @@ from odometry_torch.kernels.disparity import _finalize, pattern_stack
 from odometry_torch.kernels.select import select_points
 from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
 from odometry_torch.mapping.keyframe import create_store, insert_keyframe, window_slots
+from odometry_torch.mapping.loop_closure import LoopClosureConfig
 from odometry_torch.pipeline.odometry import init, step
 from odometry_torch.pipeline.runner import run_sequence
+from odometry_torch.pipeline.slam import run_slam
 
 KITTI = (376, 1241)
 # fast_config's and accurate_config's bands at KITTI size start at min_d =
@@ -132,6 +146,16 @@ TIE_CASES = (("full", 48, 96, None, None), ("full", 64, 384, None, None),
 # B2 against B1 bit for bit on fast_config's band at KITTI size: both score
 # pairs with ssd8() (a guard on both kernels and on ssd8.cuh): seeds.
 BAND_EQUAL_SEEDS = (0, 7)
+# ROADMAP C10: rows wider than a block's shared memory holds take the tiled
+# route. B1 and B2 against their plain version bit for bit on tie_stereo_pair
+# images of WIDE, lr on and off: (kernel, min_disparity, max_disparity).
+WIDE = (8, 6000)
+WIDE_CASES = (("band", MIN_D, 192), ("full", None, None), ("full", MIN_D, W_KITTI))
+# The tiled route forced at KITTI size against the one-block route, bit for
+# bit on all four maps: (kernel, max_disparity), lr and second_best on.
+FORCED_TILED_CASES = (("band", 192), ("full", None))
+# Where the tiled route is timed beside the plain version.
+WIDE_TIMING = (376, 6000)
 # The H100's published peaks (NVIDIA data sheet, SXM): float32 outside the
 # tensor cores, and HBM3. One (x, xr) pair's SSD is about 24 float32
 # operations: 8 subtractions, 1 multiply, 7 fused multiply-adds counted as two.
@@ -335,6 +359,74 @@ def _band_equal_case(seed, failures):
         failures.append(label)
 
 
+def _wide_case(kernel, min_d, max_d, lr, failures):
+    """A kernel on WIDE tie images (the tiled route) against its plain
+    version, bit for bit on best, match and rmatch."""
+    H, W = WIDE
+    ls, rs = (torch.from_numpy(a).cuda() for a in tie_stereo_pair(H, W, seed=H + W))
+    kw = dict(boundary=4, min_disparity=min_d, max_disparity=max_d, lr=lr)
+    fn, plain = KERNELS[kernel]
+    route = disparity_band.route(W, lr)
+    got = fn(ls, rs, **kw)
+    want = plain(ls, rs, **kw)
+    torch.cuda.synchronize()
+    diffs = [int((a != b).sum()) for a, b in zip(got[:3], want[:3])]
+    ok = sum(diffs) == 0 and route == disparity_band.TILED
+    label = f"{kernel} tie H{H} W{W} d[{min_d or 1},{max_d or 'W'}] lr={lr} ({route} route)"
+    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise vs plain, differing best/match/rmatch "
+          f"{diffs}", flush=True)
+    if not ok:
+        failures.append(label)
+
+
+def _forced_tiled_case(kernel, max_d, failures):
+    """At KITTI size the tiled route, forced, against the one-block route,
+    bit for bit on all four maps."""
+    ls, rs = _stereo(*KITTI, 0)
+    fn, _ = KERNELS[kernel]
+    kw = dict(boundary=4, min_disparity=MIN_D, max_disparity=max_d, lr=True, second_best=True)
+    one = fn(ls, rs, force_route=disparity_band.ONE_BLOCK, **kw)
+    tiled = fn(ls, rs, force_route=disparity_band.TILED, **kw)
+    torch.cuda.synchronize()
+    diffs = [int((a != b).sum()) for a, b in zip(one, tiled)]
+    ok = sum(diffs) == 0
+    label = f"{kernel} tiled vs one-block H{KITTI[0]} W{KITTI[1]} d[{MIN_D},{max_d or 'W'}]"
+    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise, differing best/match/rmatch/second "
+          f"{diffs}", flush=True)
+    if not ok:
+        failures.append(label)
+
+
+def _tiled_timing(card):
+    """The tiled route's device times (reported, not gated): at WIDE_TIMING
+    beside the plain version and the bound, and forced at KITTI size beside
+    the one-block route, in turns (one-block, tiled, tiled, one-block)."""
+    for kernel, max_d, label in (("band", 192, "band [12, 192] lr"),
+                                 ("full", None, "full search lr")):
+        fn, plain = KERNELS[kernel]
+        kw = dict(boundary=4, min_disparity=MIN_D if kernel == "band" else None,
+                  max_disparity=max_d, lr=True)
+        H, W = WIDE_TIMING
+        ls, rs = _stereo(H, W, 0)
+        wide_ms = _device_ms(lambda: fn(ls, rs, **kw), 10)
+        wide_plain_ms = _device_ms(lambda: plain(ls, rs, **kw), 2)
+        bound_ms, bound_by = _bound(H, W, 4, kw["min_disparity"], max_d, True)
+        print(f"timing {H}x{W} {kernel} {label} (tiled route, {disparity_band.TILED_LAUNCHES} "
+              f"launches per call): kernel {wide_ms:.4f} ms, plain {wide_plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / wide_ms:.1f}% of it (device "
+              f"time of back-to-back calls) [{card}]", flush=True)
+        ls, rs = _stereo(*KITTI, 0)
+        runs = {r: (lambda r=r: fn(ls, rs, force_route=r, **kw))
+                for r in (disparity_band.ONE_BLOCK, disparity_band.TILED)}
+        order = list(runs) + list(runs)[::-1]
+        times = {r: [] for r in runs}
+        for r in order:
+            times[r].append(_device_ms(runs[r], 50))
+        shown = ", ".join(f"{r} " + " / ".join(f"{t:.4f}" for t in v) for r, v in times.items())
+        print(f"timing {KITTI[0]}x{KITTI[1]} {kernel} {label}: {shown} ms (device time of "
+              f"back-to-back calls, in turns {'-'.join(order)}) [{card}]", flush=True)
+
+
 def _time_ms(fn, reps):
     times = []
     for _ in range(reps):
@@ -395,6 +487,14 @@ def _timing(kernel, label, kw, card):
           f"included); bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it"
           f"{beside} [{card}]", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _per_call(cfg) -> int:
+    """Launches one SSD search of `cfg`'s depth runs makes: 1 on the
+    one-block route, TILED_LAUNCHES on the tiled (rows too wide for one
+    block)."""
+    one = disparity_band.route(cfg.camera.width, cfg.depth.lr_check) == disparity_band.ONE_BLOCK
+    return 1 if one else disparity_band.TILED_LAUNCHES
 
 
 def _reset_counts():
@@ -478,7 +578,7 @@ def _e2e(card):
           f"full-search launches={full_launches}, depth runs={depth_runs}", flush=True)
     if not med < 0.15:
         raise RuntimeError(f"median mte {med} fails the gate 0.15 ({mtes})")
-    if launches == 0 or launches != depth_runs:
+    if launches == 0 or launches != depth_runs * _per_call(cfg):
         raise RuntimeError(f"band kernel launches {launches} != depth runs {depth_runs}")
     if full_launches != 0:
         raise RuntimeError(f"fast_config launched the full-search kernel {full_launches} times")
@@ -523,7 +623,7 @@ def _run_full_search_path(name, cfg, runs, card, **run_kw):
               f"[{card}]", flush=True)
     print(f"{name}: full-search launches={full_launches}, band launches={band_launches}, "
           f"depth runs={depth_runs}", flush=True)
-    if full_launches == 0 or full_launches != depth_runs:
+    if full_launches == 0 or full_launches != depth_runs * _per_call(cfg):
         raise RuntimeError(f"{name}: full-search launches {full_launches} != depth runs "
                            f"{depth_runs}")
     if band_launches != 0:
@@ -744,7 +844,7 @@ def _sweep_phase(card, runs, single_results):
         raise RuntimeError(f"sweep median mte {med} fails the gate 0.15 ({mtes})")
     if not all(health):
         raise RuntimeError(f"sweep: global_ok False on {health.count(False)} frames")
-    if band == 0 or band != depth_runs or full != 0:
+    if band == 0 or band != depth_runs * _per_call(cfg) or full != 0:
         raise RuntimeError(f"sweep: band launches {band} (depth runs {depth_runs}), "
                            f"full-search launches {full}")
     if not _state_devices_ok(final[0], mesh):
@@ -832,6 +932,91 @@ def _store_ba_phase(card, stores):
     return ring
 
 
+# Phase 12: the loop fixture of tools/verify_loop_closure_tpu.py. The
+# reference's endpoint errors there (JAX on a TPU v5e, round 5; PERF.md, "The
+# reference's TPU history"): odometry alone 0.019 m, BA + loop closure
+# 0.0072 m. They are the reference's figures, not a target.
+SLAM_REFERENCE_END_ERR = (0.019, 0.0072)
+
+
+def _loop_fixture(cfg):
+    """Out and back through make_driving_scene(3, side_x=20, wall_z=26): 49
+    frames, 0.35 m steps, x = 0.1 sin(0.9 k), rendered on the card."""
+    c = cfg.camera
+    cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
+    scene = make_driving_scene(3, side_x=20.0, wall_z=26.0, device="cuda")
+    n_half, stride = 24, 0.35
+    poses = []
+    for k in range(2 * n_half + 1):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = (0.1 * np.sin(0.9 * k), 0.0, stride * (k if k <= n_half else 2 * n_half - k))
+        poses.append(T)
+    frames = [render_stereo(scene, cam, c.baseline, T, c.height, c.width)[:2] for T in poses]
+    torch.cuda.synchronize()
+    return np.stack(poses), frames
+
+
+def _slam_phase(card):
+    """Phase 12: run_slam on the loop fixture, odometry only (BA every 100
+    keyframes, no loop closure) and with BA every 2 keyframes and loop
+    closure, gated as tools/verify_loop_closure_tpu.py gates it. Returns B1's
+    launches."""
+    cfg = fast_config()
+    cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(cfg.keyframe,
+                                                                motion_threshold=0.4))
+    truth, frames = _loop_fixture(cfg)
+    lc = LoopClosureConfig(radius=1.5, min_separation=3, min_inliers=200)
+    summaries = []
+    progress = lambda i, out: summaries.append(out.summary)
+
+    _reset_counts()  # count this path's launches only
+    res = {
+        "odometry": run_slam(frames, cfg, map_capacity=32, window=4, ba_every=100,
+                             loop_closure=False, progress=progress, device="cuda"),
+        "slam": run_slam(frames, cfg, map_capacity=32, window=4, ba_every=2, loop_closure=True,
+                         lc_cfg=lc, progress=progress, device="cuda"),
+    }
+    torch.cuda.synchronize()
+    band, full, ring = _counts()
+
+    s = torch.stack(summaries).cpu().numpy()
+    # Two inits, and each frame that ran depth (survivors or a failed depth).
+    depth_runs = 2 + int(((s[:, 37] > 0) | (s[:, 34] < 0.5)).sum())
+    err, ate = {}, {}
+    for name, r in res.items():
+        err[name] = float(np.linalg.norm(r.poses[-1][:3, 3] - truth[-1][:3, 3]))
+        ate[name] = mean_translation_error(truth[: r.num_frames], r.poses)
+    rep = res["slam"].stage_report
+    ms = lambda k: rep[k]["mean_ms"] if k in rep else float("nan")
+    m, o = res["slam"], res["odometry"]
+    print(f"slam: frames={m.num_frames} keyframes={len(m.keyframe_ids)} "
+          f"(odometry {len(o.keyframe_ids)}) closures={m.loop_closures} ba_runs={m.ba_runs} "
+          f"failed_at={m.failed_at}/{o.failed_at}; endpoint error odometry={err['odometry']:.6f} "
+          f"slam={err['slam']:.6f} m; ate (mean translation error) odometry="
+          f"{ate['odometry']:.6f} slam={ate['slam']:.6f} m; fps odometry={o.fps:.3f} "
+          f"slam={m.fps:.3f}; per verification {ms('verify'):.3f} ms "
+          f"({rep.get('verify', {}).get('count', 0)} runs), per closure (a 10-iteration pose-graph "
+          f"solve, its write-back and one read of the poses) {ms('close'):.3f} ms, per BA run "
+          f"{ms('ba'):.3f} ms [{card}]", flush=True)
+    print(f"slam: the reference's endpoint errors on this fixture (JAX on a TPU v5e, round 5, "
+          f"not a target): odometry {SLAM_REFERENCE_END_ERR[0]} m, BA + loop closure "
+          f"{SLAM_REFERENCE_END_ERR[1]} m; band-kernel launches={band}, full-search "
+          f"launches={full}, ring launches={ring}, depth runs={depth_runs}", flush=True)
+    if m.failed_at is not None or o.failed_at is not None:
+        raise RuntimeError(f"slam: depth failed at frame {m.failed_at} / {o.failed_at}")
+    if m.loop_closures < 1:
+        raise RuntimeError("slam: no loop closure fired")
+    if not err["slam"] < 0.2:
+        raise RuntimeError(f"slam: endpoint error {err['slam']} fails the gate 0.2")
+    if not err["slam"] <= err["odometry"] + 1e-6:
+        raise RuntimeError(f"slam: endpoint error {err['slam']} above odometry's "
+                           f"{err['odometry']}")
+    if band == 0 or band != depth_runs * _per_call(cfg) or full != 0 or ring != 0:
+        raise RuntimeError(f"slam: band launches {band} (depth runs {depth_runs}), "
+                           f"full-search launches {full}, ring launches {ring}")
+    return band
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -866,6 +1051,11 @@ def main() -> int:
         _tie_case(*case, failures)
     for seed in BAND_EQUAL_SEEDS:
         _band_equal_case(seed, failures)
+    for case in WIDE_CASES:
+        for lr in (False, True):
+            _wide_case(*case, lr, failures)
+    for case in FORCED_TILED_CASES:
+        _forced_tiled_case(*case, failures)
     if failures:
         raise RuntimeError(f"kernel parity failed: {failures}")
 
@@ -877,6 +1067,7 @@ def main() -> int:
     }
     _timing("full", f"band [12, {W_KITTI}] lr",
             dict(boundary=4, min_disparity=MIN_D, max_disparity=W_KITTI, lr=True), card)
+    _tiled_timing(card)
 
     band_launches, e2e_runs, e2e_results = _e2e(card)
     launches = {"band": band_launches, "full": _e2e_full_search(card)}
@@ -884,6 +1075,7 @@ def main() -> int:
     timing["ring"], errs["ring"] = _ring_phase(card)
     stores = _sweep_phase(card, e2e_runs, e2e_results)
     launches["ring"] = _store_ba_phase(card, stores)
+    launches["band"] += _slam_phase(card)
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

@@ -34,9 +34,9 @@
 // of 128 columns walks the offsets [min_d - 24, max_d], 205 steps for the 181
 // offsets of [12, 192] where 4 columns 32 apart would take 277. Each 8 lanes
 // of a warp own 8 neighbouring columns, so the 16-byte plane loads stay free
-// of bank conflicts. The width a block's shared memory holds bounds the image
-// width (staged_bytes(): 69.8 KB at W = 1241, about 4,600 columns at most);
-// the wrapper checks.
+// of bank conflicts. A block holds a whole row (staged_bytes(): 69.8 KB at
+// W = 1241); wider rows, past 4,629 columns with lr, take the tiled route
+// (disparity_band_tiled_launch), which the wrapper picks.
 
 #include <cuda_runtime.h>
 
@@ -57,13 +57,24 @@ band_kernel(const float* __restrict__ left, const float* __restrict__ right,
                                       boundary, min_d, max_d, second_excl);
 }
 
+// The tiled route's search (ssd_row.cuh: search_tile), for wider rows.
+template <bool kRev>
+__global__ void __launch_bounds__(ssd_row::kThreads, 2)
+band_tile_kernel(const float* __restrict__ left, const float* __restrict__ right,
+                 unsigned long long* __restrict__ fkey, unsigned long long* __restrict__ rkey,
+                 int H, int W, int boundary, int min_d, int max_d) {
+  extern __shared__ unsigned long long smem[];
+  ssd_row::search_tile<Blocking, kRev>(smem, left, right, fkey, rkey, H, W, boundary, min_d,
+                                       max_d);
+}
+
 }  // namespace
 
 // Launches the search on `stream`: forward and reverse winners from one pass
 // when rmatch is not null, forward only otherwise. second may be null.
 // Requires 1 <= min_d <= max_d and a width whose keys and planes fit a
-// block's shared memory (the wrapper checks). Returns the cudaError_t of the
-// launch (0 on success).
+// block's shared memory (the wrapper picks the route). Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int disparity_band_launch(const float* left, const float* right, float* best,
                                      int* match, int* rmatch, float* second, int H, int W,
                                      int boundary, int min_d, int max_d, int second_excl,
@@ -74,4 +85,23 @@ extern "C" int disparity_band_launch(const float* left, const float* right, floa
                                            second, H, W, boundary, min_d, max_d, second_excl, s);
   return ssd_row::launch<Blocking, false>(band_kernel<false>, left, right, best, match, rmatch,
                                           second, H, W, boundary, min_d, max_d, second_excl, s);
+}
+
+// The same search by the tiled route (three launches: fill the keys, search
+// the tiles, unpack), for a width whose keys and planes do not fit one block;
+// `keys` is H * W 8-byte words of scratch, 2 * H * W when rmatch is not null.
+// Gives the bits of disparity_band_launch at any width. Returns the
+// first cudaError_t of the three launches (0 on success).
+extern "C" int disparity_band_tiled_launch(const float* left, const float* right, float* best,
+                                           int* match, int* rmatch, float* second,
+                                           unsigned long long* keys, int H, int W, int boundary,
+                                           int min_d, int max_d, int second_excl, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rmatch != nullptr)
+    return ssd_row::launch_tiled<Blocking, true>(band_tile_kernel<true>, left, right, best, match,
+                                                 rmatch, second, keys, H, W, boundary, min_d,
+                                                 max_d, second_excl, s);
+  return ssd_row::launch_tiled<Blocking, false>(band_tile_kernel<false>, left, right, best,
+                                                match, rmatch, second, keys, H, W, boundary,
+                                                min_d, max_d, second_excl, s);
 }

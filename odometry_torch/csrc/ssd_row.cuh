@@ -54,6 +54,10 @@
 //   end, are cut into 8 equal runs, one per warp.
 // - `second` is a second scan after the winners, one thread per query
 //   column; no preset asks for it.
+// - Rows too wide for one block's shared memory (past W = 4,629 with the
+//   reverse winners, 5,606 without) take the tiled route at the end of this
+//   file: the same walk on (row, query tile, candidate tile) blocks, keys
+//   merged in device memory, bit for bit the one-block route's answer.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -99,13 +103,15 @@ __device__ __forceinline__ unsigned long long pack(float s, int i) {
   return (static_cast<unsigned long long>(__float_as_uint(s)) << 32) | static_cast<unsigned>(i);
 }
 
-// The shared-memory state of a row, and the band.
+// The shared-memory state of a row, and the band. Candidate column xr lives
+// at index xr - c_lo of the planes and reverse keys.
 struct Row {
   const float4* plo;
   const float4* phi;
   unsigned long long* rkey;
   int min_d;
   int max_d;
+  int c_lo;
 };
 
 // Offsets e in [e0, e1] for this lane's columns xb + kSp k, candidate
@@ -124,7 +130,7 @@ __device__ __forceinline__ void walk(int e0, int e1, int xb, const float q[B::kR
     const float inf = __int_as_float(0x7f800000);
     for (int e = e0; e <= e1; ++e) {
       const int xr = xb - e;
-      const int xc = B::kPad + xr;
+      const int xc = xr - row.c_lo;
       unsigned long long cur = 0;
       if (kRev) cur = *reinterpret_cast<volatile unsigned long long*>(row.rkey + xc);
       const float4 c0 = row.plo[xc];
@@ -216,10 +222,11 @@ __device__ __forceinline__ void walks_upto(int hi, int ea, int eb, int xb,
   walks<B, kHi, kRev>(ea, eb, xb, q, fb, fm, row);
 }
 
-// Offsets [ea, eb] of the group at column X0, by one warp.
+// Offsets [ea, eb] of the group at column X0, by one warp; query column x's
+// forward key is fkey[x - q_lo].
 template <class B, bool kRev>
 __device__ __forceinline__ void run(int X0, int ea, int eb, const float* left, int H, int W,
-                                    int y, unsigned long long* fkey, const Row& row) {
+                                    int y, unsigned long long* fkey, int q_lo, const Row& row) {
   const int xb = X0 + B::base(threadIdx.x & 31);
   float q[B::kRx][8];
   float fb[B::kRx];
@@ -241,7 +248,39 @@ __device__ __forceinline__ void run(int X0, int ea, int eb, const float* left, i
   walks_upto<B, kRev>(min(B::kRx, (W - X0 + B::kSp - 1) / B::kSp), ea, eb, xb, q, fb, fm, row);
 #pragma unroll
   for (int k = 0; k < B::kRx; ++k) {
-    if (fm[k] >= 0) atomicMin(fkey + xb + B::kSp * k, pack(fb[k], fm[k]));
+    if (fm[k] >= 0) atomicMin(fkey + xb + B::kSp * k - q_lo, pack(fb[k], fm[k]));
+  }
+}
+
+// The groups of query columns [Xa, Xb) (Xa a multiple of kGroup), by the
+// block's warps, against the candidate columns [c_lo_pair, c_hi_pair) that
+// the staged planes hold unpadded. Group X0 walks offsets [max(min_d -
+// kSpread, X0 - c_hi_pair + 1), min(max_d, X0 + kLastBase - c_lo_pair)]: the
+// union of its lanes' columns' candidates in that span. The steps of all
+// groups, end to end, are cut into kWarps equal runs.
+template <class B, bool kRev>
+__device__ __forceinline__ void walk_groups(int Xa, int Xb, int c_lo_pair, int c_hi_pair,
+                                            const float* left, int H, int W, int y,
+                                            unsigned long long* fkey, const Row& row) {
+  const int e_lo = row.min_d - B::kSpread;
+  auto first = [&](int X0) { return max(e_lo, X0 - c_hi_pair + 1); };
+  auto last = [&](int X0) { return min(row.max_d, X0 + B::kLastBase - c_lo_pair); };
+  long long total = 0;
+  for (int X0 = Xa; X0 < Xb; X0 += B::kGroup) total += max(0, last(X0) - first(X0) + 1);
+  const int warp = threadIdx.x >> 5;
+  const long long s0 = total * warp / kWarps;
+  const long long s1 = total * (warp + 1) / kWarps;
+  long long base = 0;
+  for (int X0 = Xa; X0 < Xb && base < s1; X0 += B::kGroup) {
+    const int ea = first(X0);
+    const int len = max(0, last(X0) - ea + 1);
+    const long long a = max(s0, base);
+    const long long z = min(s1, base + len);
+    if (a < z) {
+      run<B, kRev>(X0, ea + static_cast<int>(a - base), ea + static_cast<int>(z - base) - 1,
+                   left, H, W, y, fkey, Xa, row);
+    }
+    base += len;
   }
 }
 
@@ -283,31 +322,11 @@ __device__ __forceinline__ void search_row(unsigned long long* smem, const float
   }
   __syncthreads();
 
-  // Group g (query columns g * kGroup ..) walks offsets [min_d - kSpread,
-  // min(max_d, X0 + kLastBase - b)]: the union of its lanes' columns'
-  // candidates. The steps of all groups, end to end, are cut into kWarps
-  // equal runs.
-  const Row row{plo, phi, rkey, min_d, max_d};
-  const int groups = (W + B::kGroup - 1) / B::kGroup;
-  const int e_lo = min_d - B::kSpread;
-  long long total = 0;
-  for (int g = 0; g < groups; ++g)
-    total += max(0, min(max_d, g * B::kGroup + B::kLastBase - b) - e_lo + 1);
-  const int warp = threadIdx.x >> 5;
-  const long long s0 = total * warp / kWarps;
-  const long long s1 = total * (warp + 1) / kWarps;
-  long long base = 0;
-  for (int g = 0; g < groups && base < s1; ++g) {
-    const int X0 = g * B::kGroup;
-    const int len = max(0, min(max_d, X0 + B::kLastBase - b) - e_lo + 1);
-    const long long a = max(s0, base);
-    const long long z = min(s1, base + len);
-    if (a < z) {
-      run<B, kRev>(X0, e_lo + static_cast<int>(a - base), e_lo + static_cast<int>(z - base) - 1,
-                   left, H, W, y, fkey, row);
-    }
-    base += len;
-  }
+  // Every group walks from min_d - kSpread (no candidate column on the right
+  // is cut: the planes hold zeros past the image, read only by query columns
+  // past it) to min(max_d, X0 + kLastBase - b).
+  const Row row{plo, phi, rkey, min_d, max_d, -kPad};
+  walk_groups<B, kRev>(0, W, b, 1 << 30, left, H, W, y, fkey, row);
   __syncthreads();
 
   for (int x = threadIdx.x; x < W; x += kThreads) {
@@ -349,6 +368,167 @@ int launch(Kernel kernel, const float* left, const float* right, float* best, in
   }
   kernel<<<H, kThreads, smem, stream>>>(left, right, best, match, rmatch, second, H, W, boundary,
                                         min_d, max_d, second_excl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The tiled route, for rows whose keys and planes do not fit one block
+// (staged_bytes() above the 227 KB a block may use). Three launches:
+//   1. fill_keys: per-row forward (and reverse) key buffers in device memory,
+//      every key pack(kBig, 0), the "no pair" answer;
+//   2. search_tile: one block per (row, query tile of kTileQ columns,
+//      candidate tile of up to kTileC columns inside the query tile's
+//      candidate window). It stages the pattern planes of its candidate tile
+//      only (padded by kPad, +inf outside the tile, so a pair with another
+//      tile's candidate never scores), walks the same run<>() steps as the
+//      one-block route over the offsets that reach its candidate tile, and
+//      merges its forward and reverse keys into the device buffers with a
+//      64-bit atomicMin. Keys are (SSD bits, index): the minimum over tiles
+//      is the one-block route's minimum, whatever the order of the merges;
+//   3. finish_keys: unpacks best, match and rmatch, and computes second as
+//      search_row() does, from the final match, reading the right image.
+// So both routes give the same bits.
+constexpr int kTileQ = 1024;  // query columns of a block (8 groups of 128)
+constexpr int kTileC = 2048;  // candidate columns of a block
+
+// Dynamic shared memory of one tiled-route block (any image width).
+template <class B>
+__host__ __device__ constexpr size_t tile_bytes(bool rev) {
+  static_assert(kTileQ % B::kGroup == 0, "a group never straddles two query tiles");
+  return sizeof(unsigned long long) * (kTileQ + (rev ? kTileC + 2 * B::kPad : 0)) +
+         2 * sizeof(float4) * (kTileC + 2 * B::kPad);
+}
+
+__global__ void fill_keys(unsigned long long* keys, long long n) {
+  const unsigned long long none = pack(kBig, 0);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x)
+    keys[i] = none;
+}
+
+// Row y = blockIdx.z, query tile blockIdx.y, candidate tile blockIdx.x;
+// blockDim.x = kThreads, tile_bytes<B>(kRev) of dynamic shared memory.
+// gfkey/grkey: (H, W) key buffers filled by fill_keys (grkey with kRev).
+template <class B, bool kRev>
+__device__ __forceinline__ void search_tile(unsigned long long* smem, const float* left,
+                                            const float* right, unsigned long long* gfkey,
+                                            unsigned long long* grkey, int H, int W,
+                                            int boundary, int min_d, int max_d) {
+  constexpr int kPad = B::kPad;
+  const int y = blockIdx.z;
+  const int Q0 = blockIdx.y * kTileQ;
+  const int Q1 = min(W, Q0 + kTileQ);
+  // The query tile's candidates are [max(b, Q0 - max_d), Q1 - min_d); this
+  // block's are the blockIdx.x-th kTileC of them.
+  const int C0 = max(max(boundary, 0), Q0 - max_d) + static_cast<int>(blockIdx.x) * kTileC;
+  const int C1 = min(Q1 - min_d, C0 + kTileC);
+  if (C0 >= C1) return;  // the same for the whole block
+  const int n = C1 - C0 + 2 * kPad;  // candidate columns C0 - kPad .. C1 + kPad - 1
+  unsigned long long* fkey = smem;
+  unsigned long long* rkey = smem + kTileQ;
+  float4* plo = reinterpret_cast<float4*>(smem + kTileQ + (kRev ? kTileC + 2 * kPad : 0));
+  float4* phi = plo + kTileC + 2 * kPad;
+  const unsigned long long none = pack(kBig, 0);
+  const float inf = __int_as_float(0x7f800000);
+  for (int x = threadIdx.x; x < kTileQ; x += kThreads) fkey[x] = none;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    if (kRev) rkey[i] = none;
+    const int xr = C0 - kPad + i;
+    float v[8];
+    if (xr < C0 || xr >= C1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = inf;  // no pair in this block
+    } else {
+      pattern8(right, H, W, y, xr, v);
+    }
+    plo[i] = make_float4(v[0], v[1], v[2], v[3]);
+    phi[i] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  __syncthreads();
+
+  const Row row{plo, phi, rkey, min_d, max_d, C0 - kPad};
+  walk_groups<B, kRev>(Q0, Q1, C0, C1, left, H, W, y, fkey, row);
+  __syncthreads();
+
+  // Only keys that a pair lowered are merged (every other is `none`).
+  unsigned long long* frow = gfkey + static_cast<size_t>(y) * W;
+  for (int x = Q0 + threadIdx.x; x < Q1; x += kThreads) {
+    const unsigned long long f = fkey[x - Q0];
+    if (f < none) atomicMin(frow + x, f);
+  }
+  if (kRev) {
+    unsigned long long* rrow = grkey + static_cast<size_t>(y) * W;
+    for (int xr = C0 + threadIdx.x; xr < C1; xr += kThreads) {
+      const unsigned long long r = rkey[xr - C0 + kPad];
+      if (r < none) atomicMin(rrow + xr, r);
+    }
+  }
+}
+
+// One thread per pixel: best/match (and rmatch when rkey is not null) from
+// the merged keys; second, when not null, as search_row() computes it.
+__global__ void finish_keys(const unsigned long long* fkey, const unsigned long long* rkey,
+                            const float* left, const float* right, float* best, int* match,
+                            int* rmatch, float* second, int H, int W, int boundary, int min_d,
+                            int max_d, int second_excl) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= static_cast<long long>(H) * W) return;
+  const unsigned long long f = fkey[i];
+  best[i] = __uint_as_float(static_cast<unsigned>(f >> 32));
+  match[i] = static_cast<int>(f & 0xffffffffu);
+  if (rkey != nullptr) rmatch[i] = static_cast<int>(rkey[i] & 0xffffffffu);
+  if (second == nullptr) return;
+  const int y = static_cast<int>(i / W);
+  const int x = static_cast<int>(i % W);
+  const int m = static_cast<int>(f & 0xffffffffu);
+  float q[8];
+  float c[8];
+  pattern8(left, H, W, y, x, q);
+  const int lo = max(max(boundary, 0), x - max_d);
+  const int hi = x - min_d;
+  float b2 = kBig;
+  for (int xr = lo; xr <= hi; ++xr) {
+    if (abs(xr - m) <= second_excl) continue;
+    pattern8(right, H, W, y, xr, c);
+    b2 = fminf(b2, ssd8(q, c));
+  }
+  second[i] = b2;
+}
+
+// Launches the tiled route on `stream`: `kernel` is a __global__ wrapper of
+// search_tile<B, kRev>; `keys` holds H * W keys, 2 * H * W with kRev.
+// Returns the first cudaError_t of the three launches (0 on success).
+template <class B, bool kRev, class Kernel>
+int launch_tiled(Kernel kernel, const float* left, const float* right, float* best, int* match,
+                 int* rmatch, float* second, unsigned long long* keys, int H, int W,
+                 int boundary, int min_d, int max_d, int second_excl, cudaStream_t stream) {
+  const size_t smem = tile_bytes<B>(kRev);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long pixels = static_cast<long long>(H) * W;
+  unsigned long long* fkey = keys;
+  unsigned long long* rkey = kRev ? keys + pixels : nullptr;
+  const long long n = kRev ? 2 * pixels : pixels;
+  const long long fill_blocks = (n + 255) / 256;
+  fill_keys<<<static_cast<unsigned>(fill_blocks < 4096 ? fill_blocks : 4096), 256, 0, stream>>>(
+      keys, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // Candidate tiles per query tile: its window spans at most
+  // kTileQ + min(max_d, W) - min_d columns.
+  const int span = kTileQ + (max_d < W ? max_d : W) - min_d;
+  const int tiles_c = (span + kTileC - 1) / kTileC;
+  const dim3 grid(static_cast<unsigned>(tiles_c > 1 ? tiles_c : 1),
+                  static_cast<unsigned>((W + kTileQ - 1) / kTileQ), static_cast<unsigned>(H));
+  kernel<<<grid, kThreads, smem, stream>>>(left, right, fkey, rkey, H, W, boundary, min_d, max_d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  finish_keys<<<static_cast<unsigned>((pixels + 255) / 256), 256, 0, stream>>>(
+      fkey, rkey, left, right, best, match, rmatch, second, H, W, boundary, min_d, max_d,
+      second_excl);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,9 +31,13 @@ _ROW_CHUNK = 8  # rows per (rows, W, W) cost volume of the plain version
 # query column and, with lr, one per candidate column, and the right image's
 # 8 pattern values per candidate column as two 16-byte planes; candidate
 # columns are padded by _PAD on each side (a group of 4 x 32 columns,
-# Blocking::kPad), and the key count is rounded up to even.
+# Blocking::kPad), and the key count is rounded up to even. A row that does
+# not fit takes the tiled route (ssd_row.cuh: launch_tiled), which makes
+# TILED_LAUNCHES launches: fill the key buffers, search the tiles, unpack.
 _SMEM_LIMIT = 232448
 _PAD = 128
+ONE_BLOCK, TILED = "one_block", "tiled"
+TILED_LAUNCHES = 3
 
 # Kernel launches made by disparity_band(); tests and chip_smoke.py read it to
 # show a run went through the kernel.
@@ -106,29 +110,46 @@ def check_images(name: str, left_s: torch.Tensor, right_s: torch.Tensor):
 
 
 def staged_bytes(width: int, lr: bool) -> int:
-    """Dynamic shared memory of one block of either kernel at image width `width`."""
+    """Dynamic shared memory of one one-block-route block of either kernel at
+    image width `width`."""
     keys = (width + (width + 2 * _PAD if lr else 0) + 1) & ~1
     return 8 * keys + 32 * (width + 2 * _PAD)
 
 
-def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
-           min_d: int, max_d: int, lr: bool, second_best: bool, second_excl: int):
-    """Launch ``<name>_launch`` of ``csrc/<name>.cu`` on the current stream
-    (no synchronise) and return its ``(best, match, rmatch, second)``.
+def route(width: int, lr: bool) -> str:
+    """ONE_BLOCK (one block per row) where a row's keys and planes fit a
+    block's shared memory, else TILED: up to 4,629 columns with `lr`, 5,606
+    without. Both routes give the same bits."""
+    return ONE_BLOCK if staged_bytes(width, lr) <= _SMEM_LIMIT else TILED
 
-    The band and the full-search kernels share this C signature. Inputs are
-    checked by the caller; raises on a width whose keys and planes exceed a
-    block's shared memory, or if the launch is refused.
+
+def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
+           min_d: int, max_d: int, lr: bool, second_best: bool, second_excl: int,
+           force_route: str | None = None):
+    """Launch ``csrc/<name>.cu`` on the current stream (no synchronise) and
+    return ``((best, match, rmatch, second), launches)``.
+
+    The band and the full-search kernels share these C signatures. The route
+    is :func:`route`'s unless `force_route` forces one (the tiled route takes any
+    width; the one-block route raises on a row that does not fit). Inputs are
+    checked by the caller; raises if a launch is refused.
     """
     from odometry_torch.kernels import _build
 
     H, W = left_s.shape
-    if staged_bytes(W, lr) > _SMEM_LIMIT:
+    chosen = route(W, lr) if force_route is None else force_route
+    if chosen not in (ONE_BLOCK, TILED):
+        raise ValueError(f"{name}: unknown route {chosen!r}")
+    if chosen == ONE_BLOCK and staged_bytes(W, lr) > _SMEM_LIMIT:
         raise ValueError(f"{name}: width {W} needs {staged_bytes(W, lr)} B of shared memory "
-                         f"per block, more than the {_SMEM_LIMIT} B a block can use")
-    fn = getattr(_build.load(name), f"{name}_launch")
+                         f"per block on the one-block route, more than the {_SMEM_LIMIT} B "
+                         f"a block can use")
+    tiled = chosen == TILED
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_tiled_launch" if tiled else f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * (7 if tiled else 6) + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
 
     dev = left_s.device
     best = torch.empty((H, W), dtype=torch.float32, device=dev)
@@ -136,31 +157,39 @@ def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: 
     rmatch = torch.empty((H, W), dtype=torch.int32, device=dev) if lr else None
     second = torch.empty((H, W), dtype=torch.float32, device=dev) if second_best else None
     ptr = lambda t: None if t is None else t.data_ptr()
+    ptrs = [left_s.data_ptr(), right_s.data_ptr(), best.data_ptr(), match.data_ptr(),
+            ptr(rmatch), ptr(second)]
+    if tiled:
+        # Per-row forward (and reverse) key buffers the tiles merge into. Freed
+        # on return: the caching allocator hands the memory only to work queued
+        # after the three launches on this stream.
+        keys = torch.empty((2 if lr else 1, H, W), dtype=torch.int64, device=dev)
+        ptrs.append(keys.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(left_s.data_ptr(), right_s.data_ptr(), best.data_ptr(), match.data_ptr(),
-                ptr(rmatch), ptr(second), H, W, int(boundary), int(min_d), int(max_d),
-                int(second_excl), stream)
+        rc = fn(*ptrs, H, W, int(boundary), int(min_d), int(max_d), int(second_excl), stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed ({chosen} route): cudaError {rc}")
     if rmatch is None:
         rmatch = torch.zeros_like(match)
     if second is None:
         second = torch.full_like(best, BIG)
-    return best, match, rmatch, second
+    return (best, match, rmatch, second), (TILED_LAUNCHES if tiled else 1)
 
 
 def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
                    min_disparity: int | None, max_disparity: int, lr: bool,
-                   second_best: bool = False, second_excl: int = 2):
+                   second_best: bool = False, second_excl: int = 2,
+                   force_route: str | None = None):
     """Launch the CUDA band kernel on the current stream (no synchronise).
 
     `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images). Raises on anything the kernel does not take (a width whose keys
-    and pattern planes exceed a block's shared memory among them, about 4,600
-    columns), or if the launch is refused. Forward and reverse winners come
+    images), of any width: rows too wide for one block take the tiled route
+    (:func:`route`; `force_route` forces one). Raises on anything the kernel does
+    not take, or if a launch is refused. Forward and reverse winners come
     from one pass over the pairs, bit for bit those of a strict-< ascending
-    scan of each column.
+    scan of each column, on either route. Adds each launch to ``LAUNCHES``
+    (1 per call on the one-block route, TILED_LAUNCHES on the tiled).
     """
     global LAUNCHES
     check_images("disparity_band", left_s, right_s)
@@ -169,7 +198,8 @@ def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
     min_d = _min_d(min_disparity)
     if max_disparity < min_d:
         raise ValueError(f"disparity_band: empty band [{min_d}, {max_disparity}]")
-    out = launch("disparity_band", left_s, right_s, boundary=boundary, min_d=min_d,
-                 max_d=max_disparity, lr=lr, second_best=second_best, second_excl=second_excl)
-    LAUNCHES += 1
+    out, launches = launch("disparity_band", left_s, right_s, boundary=boundary, min_d=min_d,
+                           max_d=max_disparity, lr=lr, second_best=second_best,
+                           second_excl=second_excl, force_route=force_route)
+    LAUNCHES += launches
     return out

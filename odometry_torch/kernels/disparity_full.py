@@ -31,15 +31,18 @@ LAUNCHES = 0
 
 def disparity_full(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int,
                    min_disparity: int | None, max_disparity: int | None, lr: bool,
-                   second_best: bool = False, second_excl: int = 2):
+                   second_best: bool = False, second_excl: int = 2,
+                   force_route: str | None = None):
     """Launch the CUDA full-search kernel on the current stream (no synchronise).
 
     `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images). Raises on anything the kernel does not take (a width whose keys
-    and pattern planes exceed a block's shared memory among them, about 4,600
-    columns), or if the launch is refused. Forward and reverse winners come
-    from one pass over the pairs, bit for bit those of a strict-< ascending
-    scan of each column.
+    images), of any width: rows too wide for one block take the tiled route
+    (:func:`odometry_torch.kernels.disparity_band.route`; `force_route` forces
+    one). Raises on anything the kernel does not take, or if a launch is
+    refused. Forward and reverse winners come from one pass over the pairs,
+    bit for bit those of a strict-< ascending scan of each column, on either
+    route. Adds each launch to ``LAUNCHES`` (1 per call on the one-block
+    route, TILED_LAUNCHES on the tiled).
     """
     global LAUNCHES
     check_images("disparity_full", left_s, right_s)
@@ -48,7 +51,8 @@ def disparity_full(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
     max_d = W if max_disparity is None else int(max_disparity)
     if max_d < min_d:
         raise ValueError(f"disparity_full: empty band [{min_d}, {max_d}]")
-    out = launch("disparity_full", left_s, right_s, boundary=boundary, min_d=min_d,
-                 max_d=max_d, lr=lr, second_best=second_best, second_excl=second_excl)
-    LAUNCHES += 1
+    out, launches = launch("disparity_full", left_s, right_s, boundary=boundary, min_d=min_d,
+                           max_d=max_d, lr=lr, second_best=second_best,
+                           second_excl=second_excl, force_route=force_route)
+    LAUNCHES += launches
     return out

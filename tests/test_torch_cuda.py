@@ -168,9 +168,11 @@ def test_full_kernel_refuses_what_it_does_not_take(card):
         disparity_full.disparity_full(ls.double(), rs.double(), **kw)
     with pytest.raises(ValueError):
         disparity_full.disparity_full(ls.cpu(), rs.cpu(), **kw)
-    wide = torch.zeros((8, 6000), device=card)
-    with pytest.raises(ValueError, match="shared memory"):
-        disparity_full.disparity_full(wide, wide, **kw)
+    with pytest.raises(ValueError):
+        disparity_full.disparity_full(ls.t(), rs.t(), **kw)
+    with pytest.raises(ValueError, match="empty band"):
+        disparity_full.disparity_full(ls, rs, boundary=4, min_disparity=80, max_disparity=64,
+                                      lr=False)
 
 
 def test_dispatcher_routes_as_the_reference(card):
@@ -195,9 +197,55 @@ def test_band_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         disparity_band.disparity_band(ls, rs, boundary=4, min_disparity=80, max_disparity=64,
                                       lr=False)
+    # A row that does not fit one block is refused only on the one-block route.
     wide = torch.zeros((8, 6000), device=card)
     with pytest.raises(ValueError, match="shared memory"):
-        disparity_band.disparity_band(wide, wide, **kw)
+        disparity_band.disparity_band(wide, wide, force_route=disparity_band.ONE_BLOCK, **kw)
+
+
+# (kernel, min_disparity, max_disparity) at 8 x 6000, past both one-block
+# limits (4,629 columns with lr, 5,606 without): B1 on fast_config's band,
+# B2 on the full search and on the band [12, 1241].
+WIDE_CASES = [("band", 12, 192), ("full", None, None), ("full", 12, 1241)]
+
+
+@pytest.mark.parametrize("lr", [False, True])
+@pytest.mark.parametrize("kernel,min_d,max_d", WIDE_CASES)
+def test_wide_rows_take_the_tiled_route_bit_for_bit(card, kernel, min_d, max_d, lr):
+    """Rows wider than a block's shared memory go through the tiled route
+    (three launches) and give the plain version's bits on tie images."""
+    H, W = 8, 6000
+    assert disparity_band.route(W, lr) == disparity_band.TILED
+    ls, rs = (torch.from_numpy(a).to(card) for a in tie_stereo_pair(H, W, seed=H + W))
+    mod = disparity_band if kernel == "band" else disparity_full
+    fn = disparity_band.disparity_band if kernel == "band" else disparity_full.disparity_full
+    kw = dict(boundary=4, min_disparity=min_d, max_disparity=max_d, lr=lr)
+    before = mod.LAUNCHES
+    got = fn(ls, rs, **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + disparity_band.TILED_LAUNCHES
+    want = disparity_band.disparity_band_plain(ls, rs, **kw)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+@pytest.mark.parametrize("kernel", ["band", "full"])
+def test_tiled_route_equals_one_block_route_at_kitti_size(card, kernel, tie):
+    """At 376 x 1241 (one-block route) the tiled route, forced, gives the same
+    bits on all four maps."""
+    H, W = 376, 1241
+    if tie:
+        ls, rs = (torch.from_numpy(a).to(card) for a in tie_stereo_pair(H, W, seed=5))
+    else:
+        ls, rs = _stereo(H, W, 0, card)
+    fn = disparity_band.disparity_band if kernel == "band" else disparity_full.disparity_full
+    kw = dict(boundary=4, min_disparity=12, max_disparity=192 if kernel == "band" else None,
+              lr=True, second_best=True)
+    one = fn(ls, rs, force_route=disparity_band.ONE_BLOCK, **kw)
+    tiled = fn(ls, rs, force_route=disparity_band.TILED, **kw)
+    for a, b in zip(one, tiled):
+        assert torch.equal(a, b)
 
 
 def test_compute_depth_cuda_matches_cpu(card):

@@ -169,6 +169,23 @@ def test_route_mirrors_reference(max_d, route):
         assert (route == "band") == band_fits_vmem(max_d)
 
 
+# (width, lr, route): the one-block route holds a row up to 4,629 columns
+# with the reverse winners and 5,606 without (48 W + 10,240 B and 40 W +
+# 8,192 B of shared memory, the key count rounded up to even, against the
+# 232,448 B a block may use); wider rows take the tiled route.
+ROUTE_CASES = [(w, lr, r) for w, r_lr, r_fwd in (
+    (1241, "one_block", "one_block"), (4629, "one_block", "one_block"),
+    (4630, "tiled", "one_block"), (5606, "tiled", "one_block"), (5607, "tiled", "tiled"),
+    (6000, "tiled", "tiled")) for lr, r in ((True, r_lr), (False, r_fwd))]
+
+
+@pytest.mark.parametrize("width,lr,route", ROUTE_CASES)
+def test_kernel_route_by_width(width, lr, route):
+    assert disparity_band.route(width, lr) == route
+    fits = disparity_band.staged_bytes(width, lr) <= 232448
+    assert fits == (route == disparity_band.ONE_BLOCK)
+
+
 def test_presets_route_as_the_reference_launches():
     """At KITTI size fast_config's band [12, 192] takes the band kernel;
     accurate_config's [12, 1241] and kitti_config's full search the

@@ -83,6 +83,7 @@ from odometry_torch.mapping import ba as tba  # noqa: E402
 from odometry_torch.mapping.keyframe import create_store  # noqa: E402
 from odometry_torch.pipeline.odometry import init  # noqa: E402
 from odometry_torch.pipeline.runner import run_sequence  # noqa: E402
+from odometry_torch.pipeline.slam import run_slam  # noqa: E402
 from test_ba import CAM as JCAM, K, _make_problem  # noqa: E402
 
 NUM_SEQS, NUM_FRAMES = 4, 3
@@ -291,6 +292,7 @@ ENTRY_POINTS = [
     ("odometry_torch.distributed.mesh", "grid_mesh"),
     ("odometry_torch.distributed.sweep", "run_sweep"),
     ("odometry_torch.mapping.keyframe", "create_store"),
+    ("odometry_torch.pipeline.slam", "run_slam"),
 ]
 
 
@@ -313,6 +315,7 @@ def test_default_device_raises_without_a_card(sequences, monkeypatch):
         lambda: grid_mesh(1, 2),
         lambda: tsw.run_sweep(sequences[:1], CFG_T),
         lambda: create_store(2, 8),
+        lambda: run_slam(sequences[0], CFG_T),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -37,3 +37,5 @@ def test_port_and_chip_smoke_import_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(modules) >= 20
+    assert {"odometry_torch.mapping.pose_graph", "odometry_torch.mapping.loop_closure",
+            "odometry_torch.pipeline.slam"} <= set(modules)
