@@ -58,7 +58,22 @@ prints no result line):
     49 frames out and back in steps of 0.35 m), odometry only and with BA
     every 2 keyframes and loop closure: no depth failure, at least one
     closure, a SLAM endpoint error below 0.2 m and no larger than the
-    odometry's, B1 launched once per depth run and B2 and B3 never.
+    odometry's, B1 launched once per depth run and B2 and B3 never;
+13. the command line, ``odometry_torch.cli.main`` with ``--device cuda``, on
+    directories written with ``data/png.py`` from the driving family (seed 4,
+    25 frames at 376x1241, 8-bit): ``run-kitti --config accurate`` with its
+    pose and keyframe exports (mte < 0.15, B2 once per frame, B1 never), a
+    checkpointed run of 13 frames resumed to 25 (the uninterrupted run's
+    keyframes, poses within 1e-5, the checkpoint's keys and arrays those of
+    the same state written from the CPU), ``run-kitti --config fast
+    --lazy-depth`` (mte < 0.15, B1 once per depth run, B2 never),
+    ``eval-disparity`` on a Middlebury-layout pair of frame 0 (B2 once,
+    ``frame_ok``), ``run-tum`` on 10 frames at 480x640 with 16-bit depth (no
+    SSD launch), ``run-live`` on a directory of 5 pairs (5 lines, B1 at least
+    once), and ``run_sequence(debug_checks=True)`` raising at frame 2 on a NaN
+    input; it prints the PNG write and decode times and which decoder
+    ``stereo_frames`` used (the native one held bit for bit to
+    ``data/png.py``).
 
 Phase 3 also holds the tiled route of B1 and B2 (rows too wide for one
 block's shared memory, ROADMAP C10) bit for bit against the plain version at
@@ -72,17 +87,24 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from odometry_torch import cli, interop
 from odometry_torch.camera.pinhole import Pinhole
-from odometry_torch.config import accurate_config, fast_config, kitti_config
+from odometry_torch.config import accurate_config, fast_config, kitti_config, tum_rgbd_config
+from odometry_torch.data import kitti, png, tum
 from odometry_torch.data.synthetic import (
     PlaneScene,
     drive_trajectory,
@@ -95,6 +117,7 @@ from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
 from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh
 from odometry_torch.distributed.sweep import run_sweep
+from odometry_torch.eval.export import load_kitti_poses, save_kitti_poses
 from odometry_torch.eval.metrics import mean_translation_error
 from odometry_torch.image.pyramid import gaussian_blur3
 from odometry_torch.kernels import _build, disparity_band, disparity_full
@@ -103,9 +126,13 @@ from odometry_torch.kernels.select import select_points
 from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
 from odometry_torch.mapping.keyframe import create_store, insert_keyframe, window_slots
 from odometry_torch.mapping.loop_closure import LoopClosureConfig
+from odometry_torch.pipeline import odometry as odometry_module
+from odometry_torch.pipeline import runner
 from odometry_torch.pipeline.odometry import init, step
 from odometry_torch.pipeline.runner import run_sequence
 from odometry_torch.pipeline.slam import run_slam
+from odometry_torch.utils.checkpoint import load_pytree, save_pytree
+from odometry_torch.utils.debug import DebugCheckError
 
 KITTI = (376, 1241)
 # fast_config's and accurate_config's bands at KITTI size start at min_d =
@@ -1017,6 +1044,295 @@ def _slam_phase(card):
     return band
 
 
+# Phase 13: the command line (odometry_torch/cli.py) on directories written
+# here with data/png.py. The driving family of tools/accuracy_sweep.py:75-78,
+# seed 4, 25 frames, quantised to 8 bits with one 2-98 percentile stretch for
+# the sequence (tests/test_kitti_e2e.py:47-62); a TUM-layout sequence of 10
+# frames at 480x640 with tum_rgbd_config's intrinsics and 16-bit depth (z *
+# 5000, 0 where unknown or past 65535) in a corridor of make_driving_scene.
+CLI_FRAMES, CLI_RESUME_AT, CLI_CHECKPOINT_EVERY = 25, 13, 4
+TUM_FRAMES, TUM_STEP = 10, 0.03
+
+
+def _quantizer(frames):
+    allv = np.concatenate([im.ravel() for pair in frames for im in pair])
+    lo, hi = float(np.percentile(allv, 2.0)), float(np.percentile(allv, 98.0))
+    return lambda im: np.clip(np.round((im - lo) * (255.0 / max(hi - lo, 1e-6))),
+                              0, 255).astype(np.uint8)
+
+
+def _quat(R):
+    """(qx, qy, qz, qw) of a rotation matrix (TUM's ground-truth order)."""
+    R = np.asarray(R, np.float64)
+    w = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+    if w > 1e-6:
+        return ((R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+                (R[1, 0] - R[0, 1]) / (4 * w), w)
+    raise ValueError("rotation too far from identity for this helper")
+
+
+def _write_kitti_dir(root, cfg, dev):
+    """KITTI layout (image_0/1, calib.txt, poses/00.txt) of the driving
+    family's seed 4; returns (the left image and depth of frame 0, quantised
+    frames, ms per PNG written)."""
+    c = cfg.camera
+    cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
+    scene = make_driving_scene(4, side_x=20.0, wall_z=26.0, device=dev)
+    poses = drive_trajectory(CLI_FRAMES, step=0.25, seed=4)
+    frames, z0 = [], None
+    for T in poses:
+        left, right, z = render_stereo(scene, cam, c.baseline, T, c.height, c.width)
+        frames.append((left.cpu().numpy(), right.cpu().numpy()))
+        z0 = z.cpu().numpy() if z0 is None else z0
+    q = _quantizer(frames)
+    base = os.path.join(root, "dataset", "sequences", "00")
+    for d in ("image_0", "image_1"):
+        os.makedirs(os.path.join(base, d))
+    os.makedirs(os.path.join(root, "poses"))
+    t0 = time.perf_counter()
+    for i, (left, right) in enumerate(frames):
+        png.write_png(os.path.join(base, "image_0", f"{i:06d}.png"), q(left))
+        png.write_png(os.path.join(base, "image_1", f"{i:06d}.png"), q(right))
+    write_ms = 1e3 * (time.perf_counter() - t0) / (2 * len(frames))
+    P0 = np.array([[c.fx, 0, c.cx, 0], [0, c.fy, c.cy, 0], [0, 0, 1, 0]])
+    P1 = P0.copy()
+    P1[0, 3] = -c.fx * c.baseline
+    with open(os.path.join(base, "calib.txt"), "w") as f:
+        for name, P in (("P0", P0), ("P1", P1)):
+            f.write(name + ": " + " ".join(f"{v:.12e}" for v in P.reshape(-1)) + "\n")
+    save_kitti_poses(os.path.join(root, "poses", "00.txt"), poses)
+    return (q(frames[0][0]), q(frames[0][1]), z0), write_ms
+
+
+def _write_tum_dir(root, dev):
+    cfg = tum_rgbd_config()
+    c = cfg.camera
+    cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
+    scene = make_driving_scene(4, side_x=3.0, wall_z=6.0, device=dev)
+    poses = drive_trajectory(TUM_FRAMES, step=TUM_STEP, seed=4)
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, d))
+    lines = []
+    for i, T in enumerate(poses):
+        left, _, z = render_stereo(scene, cam, c.baseline, T, c.height, c.width)
+        gray = np.clip(np.round(left.cpu().numpy()), 0, 255).astype(np.uint8)
+        zz = z.cpu().numpy() * tum.DEPTH_SCALE
+        depth = np.where(np.isfinite(zz) & (zz > 0) & (zz <= 65535), np.round(zz), 0)
+        png.write_png(os.path.join(root, "rgb", f"{i}.png"), gray)
+        png.write_png(os.path.join(root, "depth", f"{i}.png"), depth.astype(np.uint16))
+        qx, qy, qz, qw = (float(v) for v in _quat(T[:3, :3]))
+        tx, ty, tz = (float(v) for v in T[:3, 3])
+        lines.append(f"{i}.0 {tx!r} {ty!r} {tz!r} {qx!r} {qy!r} {qz!r} {qw!r} "
+                     f"{i}.0 rgb/{i}.png {i}.0 depth/{i}.png")
+    with open(os.path.join(root, "associated.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _cli(argv, dev, depth_runs=None):
+    """cli.main(argv + --device dev) with the launch counts set to 0 just
+    before and read just after; returns (its standard output, (B1, B2, B3),
+    seconds). `depth_runs`, a one-item list, counts compute_depth calls."""
+    out = io.StringIO()
+    real_depth = odometry_module.compute_depth
+
+    def counted(*a, **k):
+        depth_runs[0] += 1
+        return real_depth(*a, **k)
+
+    if depth_runs is not None:
+        odometry_module.compute_depth = counted
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([*argv, "--device", dev])
+    finally:
+        odometry_module.compute_depth = real_depth
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    if rc != 0:
+        raise RuntimeError(f"cli {argv[0]} returned {rc}")
+    return out.getvalue(), counts, secs
+
+
+def _kitti_report(name, text, counts, secs, card):
+    report = json.loads(text.strip().splitlines()[-1])
+    print(f"cli {name}: {json.dumps(report)}; B1={counts[0]} B2={counts[1]} B3={counts[2]}; "
+          f"{secs:.3f} s [{card}]", flush=True)
+    return report
+
+
+def _cli_phase(card, dev="cuda"):
+    """Phase 13: the CLI's five subcommands on the card, each gated; returns
+    the (B1, B2) launches of its runs."""
+    t_phase = time.perf_counter()
+    acc, fast = accurate_config(), fast_config()
+    per_call = _per_call(acc)
+    band = full = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        data = os.path.join(tmp, "kitti")
+        (left0, right0, z0), write_ms = _write_kitti_dir(data, acc, dev)
+        lp, rp = kitti.frame_paths(data, "00", 0)
+        t0 = time.perf_counter()
+        for i in range(CLI_FRAMES):
+            for path in kitti.frame_paths(data, "00", i):
+                png.read_gray(path)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / (2 * CLI_FRAMES)
+        frames = kitti.stereo_frames(data, "00")
+        t0 = time.perf_counter()
+        n = sum(1 for _ in frames)
+        stream_ms = 1e3 * (time.perf_counter() - t0) / (2 * n)
+        print(f"cli data: {CLI_FRAMES} stereo pairs at {acc.camera.height}x{acc.camera.width}; "
+              f"data/png.py writes {write_ms:.3f} ms and decodes {decode_ms:.3f} ms per PNG "
+              f"(host); stereo_frames decoder={frames.decoder}"
+              + (f" (native unavailable: {frames.reason})" if frames.reason else "")
+              + f", {stream_ms:.3f} ms per PNG through it", flush=True)
+        if frames.decoder == "native":
+            from odometry_torch.data.native_loader import png_read_gray
+
+            for path in (lp, rp):
+                if not np.array_equal(png_read_gray(path), png.read_gray(path)):
+                    raise RuntimeError(f"native decoder differs from data/png.py on {path}")
+            print("cli data: native decoder bit-equal to data/png.py on frame 0", flush=True)
+
+        # run-kitti, accurate, with the exports.
+        out_a = os.path.join(tmp, "out_a")
+        argv = ["run-kitti", "--data", data, "--frames", str(CLI_FRAMES), "--config", "accurate"]
+        text, counts, secs = _cli([*argv, "--out", out_a, "--dump-vis"], dev)
+        rep = _kitti_report("run-kitti accurate", text, counts, secs, card)
+        band, full = band + counts[0], full + counts[1]
+        if rep["failed_at"] is not None or not rep["mean_translation_error_m"] < 0.15:
+            raise RuntimeError(f"run-kitti accurate: {rep}")
+        if counts[0] != 0 or counts[1] != CLI_FRAMES * per_call:
+            raise RuntimeError(f"run-kitti accurate: launches {counts}, want B2 = {CLI_FRAMES}")
+        pred = load_kitti_poses(os.path.join(out_a, "00.txt"))
+        gt = kitti.load_poses(data, "00")
+        if pred.shape != (CLI_FRAMES, 3, 4) or not np.allclose(pred[0], gt[0], atol=1e-5):
+            raise RuntimeError(f"run-kitti accurate: export {pred.shape}, pose 0 off")
+        with open(os.path.join(out_a, "vis", "keyframe_ids", "keyframe_id.txt")) as f:
+            kf_a = [int(v) for v in f.read().split()]
+        for sub in ("gray_img_left", "disparity_left", "mask_left"):
+            if len(os.listdir(os.path.join(out_a, "vis", sub))) != rep["keyframes"]:
+                raise RuntimeError(f"run-kitti accurate: {sub} has no PNG per keyframe")
+
+        # Checkpoint after CLI_RESUME_AT frames, then resume to the end.
+        out_c = os.path.join(tmp, "out_c")
+        ck = ["--out", out_c, "--checkpoint-every", str(CLI_CHECKPOINT_EVERY)]
+        argv_c = ["run-kitti", "--data", data, "--config", "accurate"]
+        text, c1, s1 = _cli([*argv_c, "--frames", str(CLI_RESUME_AT), *ck], dev)
+        _kitti_report(f"run-kitti accurate --frames {CLI_RESUME_AT}", text, c1, s1, card)
+        text, c2, s2 = _cli([*argv_c, "--frames", str(CLI_FRAMES), *ck, "--resume"], dev)
+        rep_r = _kitti_report("run-kitti accurate --resume", text, c2, s2, card)
+        band, full = band + c1[0] + c2[0], full + c1[1] + c2[1]
+        ckpt = os.path.join(out_c, "00_checkpoint.npz")
+        with np.load(ckpt) as f:
+            keys = list(f.files)
+            kf_r = [int(v) for v in f[next(k for k in keys if k.endswith("|keyframe_ids"))]]
+        dpose = float(np.abs(load_kitti_poses(os.path.join(out_c, "00.txt")) - pred).max())
+        print(f"cli resume: keyframes {kf_r} (uninterrupted {kf_a}), largest |pose delta| "
+              f"{dpose:.3e} over the exported poses; launches B2 {c1[1]} + {c2[1]}; resume "
+              f"stage {rep_r['stages'].get('resume')} ms, checkpoint stage "
+              f"{rep_r['stages'].get('checkpoint')} ms", flush=True)
+        if kf_r != kf_a or not dpose <= 1e-5 or "resume" not in rep_r["stages"]:
+            raise RuntimeError(f"resume: keyframes {kf_r} vs {kf_a}, |delta| {dpose}")
+        if c1[1] != CLI_RESUME_AT * per_call or c2[1] != (CLI_FRAMES - CLI_RESUME_AT + 1) * per_call:
+            raise RuntimeError(f"resume: launches {c1} then {c2}")
+        # The same state written from the CPU gives the same keys and arrays.
+        state, _ = init(png.read_gray(lp), png.read_gray(rp), acc, device=dev)
+        payload = load_pytree(ckpt, runner._checkpoint_template(state))
+        cpu = os.path.join(tmp, "cpu.npz")
+        save_pytree(cpu, dict(payload, state=interop.state_to_numpy(payload["state"])))
+        with np.load(ckpt) as a, np.load(cpu) as b:
+            if a.files != b.files or not all(np.array_equal(a[k], b[k]) for k in a.files):
+                raise RuntimeError("checkpoint keys or arrays differ from the CPU's")
+        print(f"cli checkpoint: {len(keys)} keys, equal to those of the same state written "
+              f"from the CPU", flush=True)
+
+        # run-kitti, fast with lazy depth: B1 once per depth run.
+        depth_runs = [0]
+        text, counts, secs = _cli(["run-kitti", "--data", data, "--frames", str(CLI_FRAMES),
+                                   "--config", "fast", "--lazy-depth"], dev, depth_runs)
+        rep = _kitti_report("run-kitti fast --lazy-depth", text, counts, secs, card)
+        band, full = band + counts[0], full + counts[1]
+        print(f"cli run-kitti fast: depth runs {depth_runs[0]}", flush=True)
+        if rep["failed_at"] is not None or not rep["mean_translation_error_m"] < 0.15:
+            raise RuntimeError(f"run-kitti fast: {rep}")
+        if counts[0] == 0 or counts[0] != depth_runs[0] * _per_call(fast) or counts[1] != 0:
+            raise RuntimeError(f"run-kitti fast: launches {counts}, depth runs {depth_runs[0]}")
+
+        # eval-disparity on a Middlebury-layout pair of frame 0.
+        mid = os.path.join(tmp, "middlebury")
+        os.makedirs(mid)
+        c = acc.camera
+        png.write_png(os.path.join(mid, "view1.png"), left0)
+        png.write_png(os.path.join(mid, "view5.png"), right0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            disp = np.where(np.isfinite(z0) & (z0 > 0), np.round(c.fx * c.baseline / z0), 0)
+        png.write_png(os.path.join(mid, "disp1.png"), np.clip(disp, 0, 255).astype(np.uint8))
+        text, counts, secs = _cli(["eval-disparity", "--data", mid, "--fx", repr(c.fx),
+                                   "--baseline", repr(c.baseline)], dev)
+        band, full = band + counts[0], full + counts[1]
+        r = json.loads(text)
+        print(f"cli eval-disparity: num_valid={r.get('num_valid')} disparity_mae_px="
+              f"{r.get('disparity_mae_px')} depth_mae_m={r.get('depth_mae_m')} "
+              f"<=1px={r.get('disparity_cumulative', {}).get('<=1.0px')} "
+              f"frame_ok={r['frame_ok']}; B1={counts[0]} B2={counts[1]}; {secs:.3f} s [{card}]",
+              flush=True)
+        if not r["frame_ok"] or counts != (0, per_call, 0):
+            raise RuntimeError(f"eval-disparity: frame_ok {r['frame_ok']}, launches {counts}")
+
+        # run-tum: sensor depth, no SSD search.
+        tum_dir = os.path.join(tmp, "tum")
+        _write_tum_dir(tum_dir, dev)
+        text, counts, secs = _cli(["run-tum", "--data", tum_dir, "--frames", str(TUM_FRAMES)],
+                                  dev)
+        r = json.loads(text.strip().splitlines()[-1])
+        print(f"cli run-tum: {json.dumps(r)}; B1={counts[0]} B2={counts[1]}; {secs:.3f} s "
+              f"[{card}]", flush=True)
+        if (r["num_frames"] != TUM_FRAMES or r.get("num_gt_matched") != TUM_FRAMES
+                or not np.isfinite(r["ate_rmse_m"]) or counts != (0, 0, 0)):
+            raise RuntimeError(f"run-tum: {r}, launches {counts}")
+
+        # run-live on a directory holding 5 pairs already.
+        watch = os.path.join(tmp, "watch")
+        os.makedirs(watch)
+        for i in range(5):
+            for eye, path in zip(("left", "right"), kitti.frame_paths(data, "00", i)):
+                shutil.copy(path, os.path.join(watch, f"{i:06d}_{eye}.png"))
+        text, counts, secs = _cli(["run-live", "--watch", watch, "--config", "fast",
+                                   "--timeout", "0.5"], dev)
+        band, full = band + counts[0], full + counts[1]
+        lines = [json.loads(v) for v in text.strip().splitlines()]
+        print(f"cli run-live: {len(lines)} lines, first {lines[0] if lines else None}, last "
+              f"{lines[-1] if lines else None}; B1={counts[0]} B2={counts[1]}; {secs:.3f} s",
+              flush=True)
+        if len(lines) != 5 or lines[0].get("init") is not True or counts[0] < 1 or counts[1]:
+            raise RuntimeError(f"run-live: {lines}, launches {counts}")
+
+        # The debug checks on the card: a NaN in frame 2's left image.
+        frames5 = [(png.read_gray(a), png.read_gray(b))
+                   for a, b in (kitti.frame_paths(data, "00", i) for i in range(5))]
+        frames5[2][0][10, 10] = np.nan
+        try:
+            run_sequence(frames5, fast, debug_checks=True, device=dev)
+        except DebugCheckError as e:
+            msg = str(e)
+        else:
+            raise RuntimeError("debug checks: a NaN input did not raise")
+        if "non-finite LEFT input frame" not in msg or "frame 2" not in msg:
+            raise RuntimeError(f"debug checks raised {msg!r}")
+        res = run_sequence(frames5, fast, device=dev)
+        print(f"cli debug: debug_checks raised {msg!r}; without them the run completed "
+              f"{res.num_frames} frames", flush=True)
+        if res.num_frames < 3:
+            raise RuntimeError(f"debug: the production run stopped at {res.num_frames} frames")
+    print(f"cli: phase 13 took {time.perf_counter() - t_phase:.3f} s (B1 {band}, B2 {full} "
+          f"launches) [{card}]", flush=True)
+    return band, full
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1076,6 +1392,9 @@ def main() -> int:
     stores = _sweep_phase(card, e2e_runs, e2e_results)
     launches["ring"] = _store_ba_phase(card, stores)
     launches["band"] += _slam_phase(card)
+    band13, full13 = _cli_phase(card)
+    launches["band"] += band13
+    launches["full"] += full13
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

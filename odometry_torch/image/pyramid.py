@@ -51,6 +51,14 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     return _sep_conv(img, GAUSS5)[: 2 * oh : 2, : 2 * ow : 2]
 
 
+def median_blur3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 median with REPLICATE borders (cv::medianBlur semantics)."""
+    h, w = img.shape
+    p = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    stack = torch.stack([p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)])
+    return torch.median(stack, dim=0).values
+
+
 def gaussian_image_pyramid(img: torch.Tensor, num_levels: int,
                            smooth: bool = True) -> Tuple[torch.Tensor, ...]:
     """The reference's ``GaussianImagePyramidNaive``: level 0 = blur3(img),
@@ -63,14 +71,15 @@ def gaussian_image_pyramid(img: torch.Tensor, num_levels: int,
     return tuple(levels)
 
 
-def depth_pyramid(dep: torch.Tensor, num_levels: int,
+def depth_pyramid(dep: torch.Tensor, num_levels: int, smooth: bool = False,
                   indexing: str = "odd") -> Tuple[torch.Tensor, ...]:
-    """The reference's ``MedianDepthPyramidNaive`` without smoothing:
-    decimation at odd (reference) or even (aligned) indices, no averaging."""
+    """The reference's ``MedianDepthPyramidNaive``: level 0 is `dep` (its 3x3
+    median when `smooth`), then decimation at odd (reference) or even
+    (aligned) indices, no averaging."""
     if indexing not in ("odd", "even"):
         raise ValueError(f"bad indexing mode {indexing!r}")
     off = 1 if indexing == "odd" else 0
-    levels = [dep]
+    levels = [median_blur3(dep) if smooth else dep]
     for _ in range(1, num_levels):
         prev = levels[-1]
         oh, ow = prev.shape[0] // 2, prev.shape[1] // 2
@@ -86,3 +95,8 @@ def central_gradients(img: torch.Tensor):
     down = torch.cat([img[1:, :], img[-1:, :]], dim=0)
     up = torch.cat([img[:1, :], img[:-1, :]], dim=0)
     return 0.5 * (right - left), 0.5 * (down - up)
+
+
+def gradient_magnitude(img: torch.Tensor) -> torch.Tensor:
+    gx, gy = central_gradients(img)
+    return torch.sqrt(gx * gx + gy * gy)

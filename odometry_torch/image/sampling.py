@@ -17,6 +17,12 @@ def clip_gather_2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> tor
     return gather_2d(img, torch.clamp(yi, 0, h - 1), torch.clamp(xi, 0, w - 1))
 
 
+def sample_floor(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Sample at (floor(v), floor(u)), clipped to bounds (the reference's
+    parity mode, ``kImg2.at<float>(floor(v), floor(u))``)."""
+    return clip_gather_2d(img, torch.floor(v).long(), torch.floor(u).long())
+
+
 def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bilinear sample at continuous (u, v), edges clamped."""
     h, w = img.shape
@@ -39,7 +45,8 @@ def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torc
     return top * (1.0 - fy) + bot * fy
 
 
-def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
     """The "mm" sampler's semantics: bilinear sampling of C channels at N
     points with the reference's bf16 rounding.
 
@@ -55,6 +62,9 @@ def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> 
       is one float32 rounding of a two-term sum, as in the matmul;
     * y-weights and the final blend stay float32.
 
+    With ``dtype=torch.float32`` (the reference's HIGHEST-precision mode)
+    nothing is rounded to bf16.
+
     Args:
       imgs: (C, H, W) channel stack. u, v: (N,) continuous pixel coordinates.
     Returns:
@@ -65,7 +75,7 @@ def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> 
     v = torch.clamp(v, 0.0, H - 1.0)
     x0 = torch.floor(u)
     y0 = torch.floor(v)
-    fx = (u - x0).to(torch.bfloat16)
+    fx = (u - x0).to(dtype)
     wx0 = (1 - fx).float()
     wx1 = fx.float()
     fy = v - y0
@@ -75,8 +85,20 @@ def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> 
     # column W / row H); clamping them keeps the gather in bounds.
     x1i = torch.clamp(x0i + 1, max=W - 1)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    q = imgs.to(torch.bfloat16).float().reshape(C, H * W)
+    q = imgs.to(dtype).float().reshape(C, H * W)
     g = lambda yi, xi: q[:, yi * W + xi]
     top = g(y0i, x0i) * wx0 + g(y0i, x1i) * wx1
     bot = g(y1i, x0i) * wx0 + g(y1i, x1i) * wx1
     return top * (1.0 - fy) + bot * fy
+
+
+def sample_bilinear_mm(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """Single-channel :func:`sample_channels_mm`."""
+    return sample_channels_mm(img[None], u, v, dtype)[0]
+
+
+def remap_bilinear(img: torch.Tensor, map_u: torch.Tensor, map_v: torch.Tensor) -> torch.Tensor:
+    """cv::remap equivalent: dst[y, x] = img(map_v[y, x], map_u[y, x]),
+    bilinear; applies precomputed undistort/rectify grids (``camera.cpp:79``)."""
+    return sample_bilinear(img, map_u, map_v)

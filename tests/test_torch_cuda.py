@@ -390,3 +390,71 @@ def test_sharded_ba_on_the_card(card, fix_depths):
     torch.testing.assert_close(sharded.inv_depth, single.inv_depth, rtol=0, atol=1e-4)
     assert int(sharded.num_residuals) == int(single.num_residuals) > 2000
     assert float(single.cost_final) <= float(single.cost_initial)
+
+
+def test_native_loader_into_pinned_tensors(card, tmp_path):
+    """StereoPrefetcher(pin_memory=True) decodes straight into page-locked
+    tensors, equal to data/png.py's native-rule decode, and they copy to the
+    card asynchronously. Skips where g++ or zlib's header is missing."""
+    from odometry_torch.data import native_loader, png
+
+    try:
+        native_loader._load()
+    except native_loader.NativeLoaderUnavailable as e:
+        pytest.skip(f"native toolchain unavailable: {e}")
+    rng = np.random.default_rng(0)
+    lefts, rights = [], []
+    for i in range(3):
+        for eye, paths in (("l", lefts), ("r", rights)):
+            p = str(tmp_path / f"{eye}{i}.png")
+            png.write_png(p, rng.integers(0, 256, (40, 72)).astype(np.uint8))
+            paths.append(p)
+    stream = list(native_loader.StereoPrefetcher(lefts, rights, 40, 72, pin_memory=True))
+    assert len(stream) == 3
+    for (left, right), lp, rp in zip(stream, lefts, rights):
+        assert left.is_pinned() and right.is_pinned()
+        on_card = left.to(card, non_blocking=True)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(on_card.cpu().numpy(), png.read_gray(lp, rule="native"))
+        np.testing.assert_array_equal(right.numpy(), png.read_gray(rp, rule="native"))
+
+
+def test_cli_run_kitti_fast_on_the_card_gives_the_cpu_keyframes(card, tmp_path, capsys):
+    """run-kitti --config fast at 144x320 from PNGs on disk: the card (B1
+    launched) and the CPU promote the same keyframes and fail nowhere."""
+    import json
+
+    from odometry_torch import cli
+    from odometry_torch.data import png
+    from odometry_torch.data.synthetic import make_driving_scene, stereo_sequence
+    from odometry_torch.eval.export import save_kitti_poses
+
+    fx = 180.0
+    cam = Pinhole.create(fx, fx, WS / 2.0, HS / 2.0)
+    poses = drive_trajectory(13, step=0.35, seed=4)
+    frames = list(stereo_sequence(make_driving_scene(3, device="cpu"), cam, 0.537, poses, HS, WS))
+    allv = np.concatenate([im.ravel() for f in frames for im in f])
+    lo, hi = np.percentile(allv, 2.0), np.percentile(allv, 98.0)
+    q = lambda im: np.clip(np.round((im - lo) * 255.0 / (hi - lo)), 0, 255).astype(np.uint8)
+    base = tmp_path / "dataset" / "sequences" / "00"
+    for i, (left, right) in enumerate(frames):
+        for d, im in (("image_0", left), ("image_1", right)):
+            (base / d).mkdir(parents=True, exist_ok=True)
+            png.write_png(str(base / d / f"{i:06d}.png"), q(im))
+    P = f"{fx} 0 {WS / 2.0} 0 0 {fx} {HS / 2.0} 0 0 0 1 0"
+    P1 = f"{fx} 0 {WS / 2.0} {-fx * 0.537} 0 {fx} {HS / 2.0} 0 0 0 1 0"
+    (base / "calib.txt").write_text(f"P0: {P}\nP1: {P1}\n")
+    save_kitti_poses(str(tmp_path / "poses" / "00.txt"), poses)
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        disparity_band.LAUNCHES = 0
+        assert cli.main(["run-kitti", "--data", str(tmp_path), "--frames", "13", "--config",
+                         "fast", "--lazy-depth", "--out", str(tmp_path / dev), "--dump-vis",
+                         "--device", dev]) == 0
+        reports[dev] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        if dev == "cuda":
+            assert disparity_band.LAUNCHES >= reports[dev]["keyframes"] >= 2
+    assert reports["cuda"]["failed_at"] is None and reports["cpu"]["failed_at"] is None
+    ids = lambda dev: (tmp_path / dev / "vis" / "keyframe_ids" / "keyframe_id.txt").read_text()
+    assert reports["cuda"]["keyframes"] == reports["cpu"]["keyframes"]
+    assert ids("cuda") == ids("cpu")

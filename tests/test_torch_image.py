@@ -89,3 +89,56 @@ def test_sample_channels_mm_semantics():
     f32 = np.stack([tsamp.sample_bilinear(torch.from_numpy(c), torch.from_numpy(u),
                                           torch.from_numpy(v)).numpy() for c in imgs])
     assert np.abs(f32 - sj).max() > 10 * ATOL
+
+
+def test_median_blur3_and_smoothed_depth_pyramid():
+    """A 3x3 median is a selection: equal bit for bit, borders replicated."""
+    img = _img(9)
+    img[5, 7] = 1e6  # an outlier the median removes
+    np.testing.assert_array_equal(np.asarray(jpyr.median_blur3(jnp.asarray(img))),
+                                  tpyr.median_blur3(torch.from_numpy(img)).numpy())
+    rng = np.random.default_rng(10)
+    dep = np.where(rng.random((H, W)) > 0.7, rng.random((H, W)), 0.0).astype(np.float32)
+    for indexing in ("odd", "even"):
+        pj = jpyr.depth_pyramid(jnp.asarray(dep), 4, smooth=True, indexing=indexing)
+        pt = tpyr.depth_pyramid(torch.from_numpy(dep), 4, smooth=True, indexing=indexing)
+        assert len(pj) == len(pt) == 4
+        for a, b in zip(pj, pt):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_gradient_magnitude():
+    """Clamped central differences are exact in both; the square root of
+    their squared sum rounds once more: within 1e-6 relative."""
+    img = _img(11)
+    np.testing.assert_allclose(np.asarray(jpyr.gradient_magnitude(jnp.asarray(img))),
+                               tpyr.gradient_magnitude(torch.from_numpy(img)).numpy(),
+                               rtol=1e-6, atol=0)
+
+
+def test_sample_floor_bilinear_mm_and_remap():
+    """sample_floor is a selection (exact). sample_bilinear_mm in float32 and
+    remap_bilinear blend four float32 taps, the reference's "mm" form as a
+    matmul, so in another order: within 1e-6 relative (a float32 ulp near
+    255 is 1.5e-5 absolute). In bf16 the "mm" rounding of
+    test_sample_channels_mm_semantics holds."""
+    img = _img(12)
+    u, v = _coords(seed=13)
+    ju, jv, tu, tv = jnp.asarray(u), jnp.asarray(v), torch.from_numpy(u), torch.from_numpy(v)
+    np.testing.assert_array_equal(np.asarray(jsamp.sample_floor(jnp.asarray(img), ju, jv)),
+                                  tsamp.sample_floor(torch.from_numpy(img), tu, tv).numpy())
+    np.testing.assert_allclose(
+        np.asarray(jsamp.sample_bilinear_mm(jnp.asarray(img), ju, jv, dtype=jnp.float32)),
+        tsamp.sample_bilinear_mm(torch.from_numpy(img), tu, tv, dtype=torch.float32).numpy(),
+        rtol=1e-6, atol=0)
+    _close(jsamp.sample_bilinear_mm(jnp.asarray(img), ju, jv),
+           tsamp.sample_bilinear_mm(torch.from_numpy(img), tu, tv))
+    rng = np.random.default_rng(14)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    map_u = (xs + rng.uniform(-3, 3, (H, W))).astype(np.float32)
+    map_v = (ys + rng.uniform(-3, 3, (H, W))).astype(np.float32)
+    np.testing.assert_allclose(
+        np.asarray(jsamp.remap_bilinear(jnp.asarray(img), jnp.asarray(map_u), jnp.asarray(map_v))),
+        tsamp.remap_bilinear(torch.from_numpy(img), torch.from_numpy(map_u),
+                             torch.from_numpy(map_v)).numpy(),
+        rtol=1e-6, atol=0)

@@ -140,11 +140,18 @@ def _leaves(state):
     return out
 
 
-def test_unported_options_and_devices_raise(sequence):
+def test_unported_options_and_devices_raise(sequence, tmp_path):
+    # The runner's options are ported now: they run instead of raising
+    # (tests/test_torch_checkpoint.py and test_torch_debug.py hold them to the
+    # reference and to an uninterrupted run).
     _, frames = sequence
-    for kw in (dict(checkpoint_path="state.npz"), dict(resume=True), dict(debug_checks=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            t_run_sequence(frames[:2], CFG_T, device="cpu", **kw)
+    ckpt = str(tmp_path / "state.npz")
+    res = t_run_sequence(frames[:2], CFG_T, device="cpu", checkpoint_path=ckpt,
+                         checkpoint_every=1, debug_checks=True)
+    assert res.num_frames == 2 and "checkpoint" in res.stage_report
+    res = t_run_sequence(frames[:2], CFG_T, device="cpu", checkpoint_path=ckpt, resume=True)
+    assert "resume" in res.stage_report
+    assert res.poses.shape == (2, 4, 4)
     # The card is never swapped for the CPU.
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
