@@ -11,10 +11,12 @@ prints no result line):
 2. build the three kernels from ``odometry_torch/csrc`` with nvcc, one
    process each, started together (the band kernel B1, the full-search
    kernel B2 and the all-gather B3), and print what ``-Xptxas -v`` says;
-3. each SSD kernel against its plain PyTorch version on the card: cases on
-   selected pixels, dense every-pixel winner maps at KITTI size, and one
-   ``second_best`` case each, under the parity budgets below; B1 and B2
-   against their plain version bit for bit on ``tie_stereo_pair`` images
+3. every case of the parity harness ``odometry_torch/tools/kernel_parity.py``:
+   ``tools/tpu_parity.py``'s band, full and dense cases at its sizes; each
+   SSD kernel against its plain PyTorch version on selected pixels and on
+   dense every-pixel winner maps at the presets' bands at KITTI size, and
+   one ``second_best`` case each, under that module's parity budgets; B1 and
+   B2 against their plain version bit for bit on ``tie_stereo_pair`` images
    (exact SSDs, exact ties; B1 also on a band narrower than its blocking's
    spread and at widths that are not a multiple of 128), and B2 with
    ``max_disparity=192`` against B1 bit for bit at KITTI size (both score
@@ -73,12 +75,22 @@ prints no result line):
     once), and ``run_sequence(debug_checks=True)`` raising at frame 2 on a NaN
     input; it prints the PNG write and decode times and which decoder
     ``stereo_frames`` used (the native one held bit for bit to
-    ``data/png.py``).
+    ``data/png.py``);
+14. the port's tools: (a) ``tools/accuracy_sweep.sweep`` on seed 3, the
+    three scene families x fast_config and accurate_config, 49 frames at
+    376x1241 (plane and driving gated at mte < 0.15, textured on no depth
+    failure; B1 once per depth run and B2 never on fast, B2 once per frame
+    and B1 never on accurate); (b) ``sweep_scaling_report(fast_config(),
+    [1, 2, 4, 8])`` printed with ``format_scaling_table`` (analytic
+    efficiency >= 80%, 0 < collective bytes < 4096); (c) ``tools/profile_step``
+    on accurate_config with a device trace of 10 steps into ``$TMPDIR``
+    (``trace_summary`` printed; gated on device time, launches and B2 in the
+    trace).
 
-Phase 3 also holds the tiled route of B1 and B2 (rows too wide for one
-block's shared memory, ROADMAP C10) bit for bit against the plain version at
-8x6000 and against the one-block route at 376x1241, and times it at 376x6000
-and 376x1241 (reported, not gated).
+Phase 3's harness also holds the tiled route of B1 and B2 (rows too wide
+for one block's shared memory, ROADMAP C10) bit for bit against the plain
+version at 8x6000 and against the one-block route at 376x1241; phase 4
+times it at 376x6000 and 376x1241 (reported, not gated).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a call on the tiled route counts its three launches. The second-to-last line is a JSON object describing each kernel; the
@@ -93,7 +105,6 @@ import io
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -111,18 +122,16 @@ from odometry_torch.data.synthetic import (
     make_driving_scene,
     make_scene,
     render_stereo,
-    tie_stereo_pair,
 )
+from odometry_torch.device import card_line
 from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
 from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh
+from odometry_torch.distributed.scaling import format_scaling_table, sweep_scaling_report
 from odometry_torch.distributed.sweep import run_sweep
 from odometry_torch.eval.export import load_kitti_poses, save_kitti_poses
 from odometry_torch.eval.metrics import mean_translation_error
-from odometry_torch.image.pyramid import gaussian_blur3
 from odometry_torch.kernels import _build, disparity_band, disparity_full
-from odometry_torch.kernels.disparity import _finalize, pattern_stack
-from odometry_torch.kernels.select import select_points
 from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
 from odometry_torch.mapping.keyframe import create_store, insert_keyframe, window_slots
 from odometry_torch.mapping.loop_closure import LoopClosureConfig
@@ -131,56 +140,11 @@ from odometry_torch.pipeline import runner
 from odometry_torch.pipeline.odometry import init, step
 from odometry_torch.pipeline.runner import run_sequence
 from odometry_torch.pipeline.slam import run_slam
+from odometry_torch.tools import accuracy_sweep, kernel_parity, profile_step
+from odometry_torch.tools.kernel_parity import KERNELS, KITTI, MIN_D, W_KITTI, stereo
 from odometry_torch.utils.checkpoint import load_pytree, save_pytree
 from odometry_torch.utils.debug import DebugCheckError
 
-KITTI = (376, 1241)
-# fast_config's and accurate_config's bands at KITTI size start at min_d =
-# int(fx * baseline / max_depth) = 12 (depth/estimator.py:search_band);
-# fast_config's ends at 192, accurate_config's at the image width.
-MIN_D = 12
-W_KITTI = KITTI[1]
-# The two kernels: (wrapper, plain version).
-KERNELS = {
-    "band": (disparity_band.disparity_band, disparity_band.disparity_band_plain),
-    "full": (disparity_full.disparity_full, disparity_full.disparity_full_plain),
-}
-# (kernel, H, W, min_disparity, max_disparity, seed); None is the band
-# [1, max_d], or the full search for max_d.
-SELECTED_CASES = (
-    ("band", 48, 256, None, 64, 0), ("band", 64, 384, None, 192, 0),
-    ("band", 376, 1241, MIN_D, 192, 0), ("band", 376, 1241, MIN_D, 192, 2),
-    ("band", 376, 1241, MIN_D, 192, 5),
-    ("full", 48, 96, None, None, 0), ("full", 64, 384, None, None, 0),
-    ("full", 376, 1241, None, None, 0), ("full", 376, 1241, None, None, 2),
-    ("full", 376, 1241, None, None, 5),
-)
-# accurate_config's band, lr on only (as accurate_config runs it).
-SELECTED_LR_CASES = (("full", 376, 1241, MIN_D, W_KITTI, 0),)
-DENSE_CASES = (("band", 376, 1241, MIN_D, 192, 7), ("band", 376, 1241, MIN_D, 192, 0),
-               ("full", 376, 1241, None, None, 7), ("full", 376, 1241, None, None, 0))
-SECOND_CASES = (("band", 376, 1241, MIN_D, 192, 0), ("full", 376, 1241, None, None, 0))
-# B1 and B2 against their plain version bit for bit on tie_stereo_pair images
-# (exact SSDs, exact ties a period apart): (kernel, H, W, min_disparity,
-# max_disparity), None the full search and "W" the image width. B1's [12, 28]
-# is narrower than its blocking's spread (24 offsets), [12, 40] just wider.
-TIE_CASES = (("full", 48, 96, None, None), ("full", 64, 384, None, None),
-             ("full", 48, 96, MIN_D, "W"), ("full", 64, 384, MIN_D, "W"),
-             ("full", 376, 1241, None, None), ("full", 376, 1241, MIN_D, "W"),
-             ("band", 48, 256, None, 64), ("band", 64, 384, MIN_D, 192),
-             ("band", 376, 1241, MIN_D, 192), ("band", 48, 200, MIN_D, 40),
-             ("band", 48, 200, MIN_D, 28))
-# B2 against B1 bit for bit on fast_config's band at KITTI size: both score
-# pairs with ssd8() (a guard on both kernels and on ssd8.cuh): seeds.
-BAND_EQUAL_SEEDS = (0, 7)
-# ROADMAP C10: rows wider than a block's shared memory holds take the tiled
-# route. B1 and B2 against their plain version bit for bit on tie_stereo_pair
-# images of WIDE, lr on and off: (kernel, min_disparity, max_disparity).
-WIDE = (8, 6000)
-WIDE_CASES = (("band", MIN_D, 192), ("full", None, None), ("full", MIN_D, W_KITTI))
-# The tiled route forced at KITTI size against the one-block route, bit for
-# bit on all four maps: (kernel, max_disparity), lr and second_best on.
-FORCED_TILED_CASES = (("band", 192), ("full", None))
 # Where the tiled route is timed beside the plain version.
 WIDE_TIMING = (376, 6000)
 # The H100's published peaks (NVIDIA data sheet, SXM): float32 outside the
@@ -189,16 +153,6 @@ WIDE_TIMING = (376, 6000)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_PAIR = 24
-# Parity budgets (after tools/tpu_parity.py:66-91,127-159). The kernel sums
-# squared differences directly; the plain version expands
-# ||L||^2 + ||R||^2 - 2 L.R, whose float32 rounding grows with the norms.
-# A winner may differ only at a near-tie, where the plain version's SSDs of
-# the two winners differ by less than TIE_ABS + TIE_REL * (ln + rn).
-TIE_ABS = 0.5
-TIE_REL = 8 * 2.0**-24
-MAX_FLIP_FRACTION_SELECTED = 0.005
-MAX_FLIP_FRACTION_DENSE = 0.01
-SSD_TH = 900.0
 
 
 class _TpuPhaseScene(PlaneScene):
@@ -223,207 +177,6 @@ def tpu_phase_scene(scene: PlaneScene) -> PlaneScene:
                              for f in dataclasses.fields(scene)})
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
-
-
-def _stereo(H, W, seed):
-    """Blurred synthetic stereo pair on the card (tools/tpu_parity.py:_stereo)."""
-    cam = Pinhole.create(0.58 * W, 0.58 * W, W / 2.0, H / 2.0)
-    scene = make_scene(seed + 3, depth=14.0, device="cuda")
-    left, right, _ = render_stereo(scene, cam, 0.537, torch.eye(4), H, W)
-    return gaussian_blur3(left).contiguous(), gaussian_blur3(right).contiguous()
-
-
-class _Pairs:
-    """Plain-version (norm-expansion) SSDs of chosen (row, x, xr) pairs."""
-
-    def __init__(self, ls, rs):
-        self.PL, self.PR = pattern_stack(ls), pattern_stack(rs)
-        self.ln = torch.sum(self.PL * self.PL, dim=0)
-        self.rn = torch.sum(self.PR * self.PR, dim=0)
-
-    def ssd(self, y, x, xr):
-        cross = torch.sum(self.PL[:, y, x] * self.PR[:, y, xr], dim=0)
-        return self.ln[y, x] + self.rn[y, xr] - 2.0 * cross
-
-    def band(self, y, x, xr):
-        return TIE_ABS + TIE_REL * (self.ln[y, x] + self.rn[y, xr])
-
-
-def _flips_are_ties(pairs, y, a, b) -> bool:
-    """Winner flips at rows `y` are ties: pairs a = (x, xr) and b = (x, xr)
-    score within the band of each other."""
-    if y.numel() == 0:
-        return True
-    gap = (pairs.ssd(y, *a) - pairs.ssd(y, *b)).abs()
-    tol = torch.maximum(pairs.band(y, *a), pairs.band(y, *b))
-    return bool((gap < tol).all())
-
-
-def _best_within_band(pairs, best_k, best_p, match_p, region):
-    """|best_kernel - best_plain| within the band where x has candidates."""
-    has = region & (best_p < 1e9)
-    y, x = torch.nonzero(has, as_tuple=True)
-    m = match_p[y, x].long()
-    err = (best_k[y, x] - best_p[y, x]).abs()
-    ok = bool((err <= pairs.band(y, x, m)).all())
-    return ok, float(err.max()) if err.numel() else 0.0
-
-
-def _selected_case(kernel, H, W, min_d, D, seed, lr, failures, errs):
-    ls, rs = _stereo(H, W, seed)
-    fn, plain = KERNELS[kernel]
-    kw = dict(boundary=4, min_disparity=min_d, max_disparity=D, lr=lr)
-    bk, mk, rk, _ = fn(ls, rs, **kw)
-    torch.cuda.synchronize()
-    bp, mp, rp, _ = plain(ls, rs, **kw)
-    torch.cuda.synchronize()
-    sel = select_points(ls, boundary=4, block_rows=8, block_cols=16, grad_th=8.0,
-                        max_points_per_block=80)
-    fin = dict(fx=0.58 * W, baseline=0.537, boundary=4, ssd_th=SSD_TH, lr_check=lr, lr_tol=1)
-    rk_ = _finalize(ls, bk, mk, rk, sel, **fin)
-    rp_ = _finalize(ls, bp, mp, rp, sel, **fin)
-    pairs = _Pairs(ls, rs)
-    both = rk_.matched & rp_.matched
-    n = int(both.sum())
-    flip = both & (mk != mp)
-    y, x = torch.nonzero(flip, as_tuple=True)
-    tie_ok = _flips_are_ties(pairs, y, (x, mk[y, x].long()), (x, mp[y, x].long()))
-    match_diff = int((rk_.matched != rp_.matched).sum())
-    val_ok, err = _best_within_band(pairs, bk, bp, mp, sel)
-    budget = max(2, int(MAX_FLIP_FRACTION_SELECTED * n))
-    ok = tie_ok and val_ok and int(flip.sum()) + match_diff <= budget
-    errs[kernel].append(err)
-    label = f"{kernel} H{H} W{W} d[{min_d or 1},{D or 'W'}] s{seed} lr={lr}"
-    print(f"{'PASS' if ok else 'FAIL'}  {label}: matched={n} flips={int(flip.sum())} "
-          f"matched_diff={match_diff} budget={budget} ties_ok={tie_ok} "
-          f"max|dbest|={err:.4f}", flush=True)
-    if not ok:
-        failures.append(label)
-
-
-def _dense_case(kernel, H, W, min_d, D, seed, failures, errs, second_best=False):
-    ls, rs = _stereo(H, W, seed)
-    fn, plain = KERNELS[kernel]
-    kw = dict(boundary=4, min_disparity=min_d, max_disparity=D, lr=True,
-              second_best=second_best)
-    bk, mk, rk, sk = fn(ls, rs, **kw)
-    torch.cuda.synchronize()
-    bp, mp, rp, sp = plain(ls, rs, **kw)
-    torch.cuda.synchronize()
-    pairs = _Pairs(ls, rs)
-    interior = torch.zeros((H, W), dtype=torch.bool, device=ls.device)
-    # Columns whose candidate set is the kernel's full band (the band
-    # kernel's) or that have candidates at all (the full search's).
-    interior[4 : H - 4, (D if kernel == "band" else 0) + 8 : W - 4] = True
-    n = int(interior.sum())
-    mflip = interior & (mk != mp)
-    rflip = interior & (rk != rp)
-    y, x = torch.nonzero(mflip, as_tuple=True)
-    tie_f = _flips_are_ties(pairs, y, (x, mk[y, x].long()), (x, mp[y, x].long()))
-    y, xr = torch.nonzero(rflip, as_tuple=True)
-    tie_r = _flips_are_ties(pairs, y, (rk[y, xr].long(), xr), (rp[y, xr].long(), xr))
-    val_ok, err = _best_within_band(pairs, bk, bp, mp, interior)
-    ok = (tie_f and tie_r and val_ok and int(mflip.sum()) <= MAX_FLIP_FRACTION_DENSE * n
-          and int(rflip.sum()) <= MAX_FLIP_FRACTION_DENSE * n)
-    detail = (f"match_diff={int(mflip.sum())} rmatch_diff={int(rflip.sum())} n={n} "
-              f"ties_ok={tie_f and tie_r} max|dbest|={err:.4f}")
-    if second_best:
-        # `second` is held to the plain version's semantics (the reference's
-        # XLA path), where both versions picked the same winner.
-        same = interior & (mk == mp) & (sp < 1e9)
-        ys, xs = torch.nonzero(same, as_tuple=True)
-        serr = (sk[ys, xs] - sp[ys, xs]).abs()
-        rn_row = pairs.rn.amax(dim=1)
-        tol = TIE_ABS + TIE_REL * (pairs.ln[ys, xs] + rn_row[ys])
-        s_ok = bool((serr <= tol).all()) and bool(((sk >= 1e9) == (sp >= 1e9))[same].all())
-        ok = ok and s_ok
-        detail += f" second_ok={s_ok} max|dsecond|={float(serr.max()):.4f}"
-    errs[kernel].append(err)
-    label = f"{kernel} dense H{H} W{W} d[{min_d or 1},{D or 'W'}] s{seed}" + (
-        " second_best" if second_best else "")
-    print(f"{'PASS' if ok else 'FAIL'}  {label}: {detail}", flush=True)
-    if not ok:
-        failures.append(label)
-
-
-def _tie_case(kernel, H, W, min_d, max_d, failures):
-    """A kernel against its plain version on tie_stereo_pair images, bit for bit."""
-    ls, rs = (torch.from_numpy(a).cuda() for a in tie_stereo_pair(H, W, seed=H + W))
-    kw = dict(boundary=4, min_disparity=min_d, max_disparity=W if max_d == "W" else max_d,
-              lr=True)
-    fn, plain = KERNELS[kernel]
-    got = fn(ls, rs, **kw)
-    want = plain(ls, rs, **kw)
-    torch.cuda.synchronize()
-    diffs = [int((a != b).sum()) for a, b in zip(got[:3], want[:3])]
-    ok = sum(diffs) == 0
-    label = f"{kernel} tie H{H} W{W} d[{min_d or 1},{max_d or 'W'}]"
-    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise vs plain, differing best/match/rmatch "
-          f"{diffs}", flush=True)
-    if not ok:
-        failures.append(label)
-
-
-def _band_equal_case(seed, failures):
-    """B2 with max_disparity=192 against B1 on the band [12, 192] at KITTI
-    size, bit for bit on all four maps."""
-    ls, rs = _stereo(*KITTI, seed)
-    kw = dict(boundary=4, min_disparity=MIN_D, max_disparity=192, lr=True, second_best=True)
-    full = disparity_full.disparity_full(ls, rs, **kw)
-    band = disparity_band.disparity_band(ls, rs, **kw)
-    torch.cuda.synchronize()
-    diffs = [int((a != b).sum()) for a, b in zip(full, band)]
-    ok = sum(diffs) == 0
-    label = f"full vs band H{KITTI[0]} W{KITTI[1]} d[{MIN_D},192] s{seed}"
-    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise, differing best/match/rmatch/second "
-          f"{diffs}", flush=True)
-    if not ok:
-        failures.append(label)
-
-
-def _wide_case(kernel, min_d, max_d, lr, failures):
-    """A kernel on WIDE tie images (the tiled route) against its plain
-    version, bit for bit on best, match and rmatch."""
-    H, W = WIDE
-    ls, rs = (torch.from_numpy(a).cuda() for a in tie_stereo_pair(H, W, seed=H + W))
-    kw = dict(boundary=4, min_disparity=min_d, max_disparity=max_d, lr=lr)
-    fn, plain = KERNELS[kernel]
-    route = disparity_band.route(W, lr)
-    got = fn(ls, rs, **kw)
-    want = plain(ls, rs, **kw)
-    torch.cuda.synchronize()
-    diffs = [int((a != b).sum()) for a, b in zip(got[:3], want[:3])]
-    ok = sum(diffs) == 0 and route == disparity_band.TILED
-    label = f"{kernel} tie H{H} W{W} d[{min_d or 1},{max_d or 'W'}] lr={lr} ({route} route)"
-    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise vs plain, differing best/match/rmatch "
-          f"{diffs}", flush=True)
-    if not ok:
-        failures.append(label)
-
-
-def _forced_tiled_case(kernel, max_d, failures):
-    """At KITTI size the tiled route, forced, against the one-block route,
-    bit for bit on all four maps."""
-    ls, rs = _stereo(*KITTI, 0)
-    fn, _ = KERNELS[kernel]
-    kw = dict(boundary=4, min_disparity=MIN_D, max_disparity=max_d, lr=True, second_best=True)
-    one = fn(ls, rs, force_route=disparity_band.ONE_BLOCK, **kw)
-    tiled = fn(ls, rs, force_route=disparity_band.TILED, **kw)
-    torch.cuda.synchronize()
-    diffs = [int((a != b).sum()) for a, b in zip(one, tiled)]
-    ok = sum(diffs) == 0
-    label = f"{kernel} tiled vs one-block H{KITTI[0]} W{KITTI[1]} d[{MIN_D},{max_d or 'W'}]"
-    print(f"{'PASS' if ok else 'FAIL'}  {label}: bitwise, differing best/match/rmatch/second "
-          f"{diffs}", flush=True)
-    if not ok:
-        failures.append(label)
-
-
 def _tiled_timing(card):
     """The tiled route's device times (reported, not gated): at WIDE_TIMING
     beside the plain version and the bound, and forced at KITTI size beside
@@ -434,7 +187,7 @@ def _tiled_timing(card):
         kw = dict(boundary=4, min_disparity=MIN_D if kernel == "band" else None,
                   max_disparity=max_d, lr=True)
         H, W = WIDE_TIMING
-        ls, rs = _stereo(H, W, 0)
+        ls, rs = stereo(H, W, 0)
         wide_ms = _device_ms(lambda: fn(ls, rs, **kw), 10)
         wide_plain_ms = _device_ms(lambda: plain(ls, rs, **kw), 2)
         bound_ms, bound_by = _bound(H, W, 4, kw["min_disparity"], max_d, True)
@@ -442,7 +195,7 @@ def _tiled_timing(card):
               f"launches per call): kernel {wide_ms:.4f} ms, plain {wide_plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / wide_ms:.1f}% of it (device "
               f"time of back-to-back calls) [{card}]", flush=True)
-        ls, rs = _stereo(*KITTI, 0)
+        ls, rs = stereo(*KITTI, 0)
         runs = {r: (lambda r=r: fn(ls, rs, force_route=r, **kw))
                 for r in (disparity_band.ONE_BLOCK, disparity_band.TILED)}
         order = list(runs) + list(runs)[::-1]
@@ -494,7 +247,7 @@ def _timing(kernel, label, kw, card):
     enqueue (ctypes, the output allocations). For B1 also B2's device time on
     the same band, the port's other kernel for it (not a library call)."""
     fn, plain = KERNELS[kernel]
-    ls, rs = _stereo(*KITTI, 0)
+    ls, rs = stereo(*KITTI, 0)
     for _ in range(3):
         fn(ls, rs, **kw)
         plain(ls, rs, **kw)
@@ -1333,12 +1086,76 @@ def _cli_phase(card, dev="cuda"):
     return band, full
 
 
+# Phase 14: the port's tools. (a) a cut of the accuracy sweep (one seed of
+# each preset and family), (b) the weak-scaling report, (c) profile_step.
+SWEEP_SEEDS = [3]
+SCALING_SIZES = [1, 2, 4, 8]
+
+
+def _tools_phase(card):
+    """Phase 14 (see the module docstring); returns the (B1, B2) launches of
+    its three parts, each counted from 0."""
+    t_phase = time.perf_counter()
+    _reset_counts()
+    records = accuracy_sweep.sweep(seeds=SWEEP_SEEDS, device="cuda",
+                                   log=lambda line: print(f"sweep: {line} [{card}]", flush=True))
+    band, full, _ = _counts()
+    for row in accuracy_sweep.summarize(records):
+        print(f"sweep: {row['config']}/{row['scene']} median mte {row['median']:.6f} "
+              f"({row['n_green']}/{row['n']} under {accuracy_sweep.GATE})", flush=True)
+    for r in records:
+        name = f"sweep {r['config']}/{r['scene']} seed {r['seed']}"
+        if r["error"] is not None or r["failed_at"] is not None:
+            raise RuntimeError(f"{name}: depth failed ({r['error'] or r['failed_at']})")
+        if r["scene"] != "textured" and not r["mte"] < accuracy_sweep.GATE:
+            raise RuntimeError(f"{name}: mte {r['mte']} fails the gate {accuracy_sweep.GATE}")
+        per = _per_call(accuracy_sweep.CONFIGS[r["config"]]())
+        want = ((r["depth_runs"] * per, 0) if r["config"] == "fast"
+                else (0, r["frames"] * per))
+        if (r["b1"], r["b2"]) != want or r["b1"] + r["b2"] == 0:
+            raise RuntimeError(f"{name}: launches B1 {r['b1']} B2 {r['b2']}, want {want}")
+    if (band, full) != (sum(r["b1"] for r in records), sum(r["b2"] for r in records)):
+        raise RuntimeError(f"sweep: launch counters {band}/{full} differ from the runs'")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = sweep_scaling_report(fast_config(), SCALING_SIZES)
+    b, f, _ = _counts()
+    band, full = band + b, full + f
+    print(format_scaling_table(rows), flush=True)
+    print(f"scaling: ops by rank {[r['ops_by_rank'] for r in rows]}; B1 {b}, B2 {f}; "
+          f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    for r in rows:
+        if not (r["analytic_efficiency_pct"] >= 80.0 and 0 < r["collective_bytes"] < 4096
+                and r["steps_per_s"] > 0):
+            raise RuntimeError(f"scaling: row {r} fails its gates")
+
+    _reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        prof = profile_step.profile(accurate_config(), device="cuda", reps=5, trace_dir=tmp,
+                                    log=lambda line: print(f"profile accurate: {line}",
+                                                           flush=True))
+        traces = os.listdir(tmp)
+    b, f, _ = _counts()
+    band, full = band + b, full + f
+    trace = prof["trace"]
+    in_trace = sum(op["count"] for op in trace["port_kernels"] if "full_kernel" in op["name"])
+    print(f"profile accurate: B2 {in_trace} launches in the trace ({f} counted over the "
+          f"tool's run), trace files {traces} [{card}]", flush=True)
+    if not (trace["device_busy_ms"] > 0 and trace["device_launches"] > 0 and in_trace > 0
+            and f > 0 and b == 0 and traces):
+        raise RuntimeError(f"profile accurate: trace {trace}, launches B1 {b} B2 {f}")
+    print(f"tools: phase 14 took {time.perf_counter() - t_phase:.3f} s (B1 {band}, B2 {full} "
+          f"launches) [{card}]", flush=True)
+    return band, full
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 1
-    card = _card_line()
+    card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1353,27 +1170,13 @@ def main() -> int:
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    failures, errs = [], {"band": [], "full": []}
-    for case in SELECTED_CASES:
-        for lr in (False, True):
-            _selected_case(*case, lr, failures, errs)
-    for case in SELECTED_LR_CASES:
-        _selected_case(*case, True, failures, errs)
-    for case in DENSE_CASES:
-        _dense_case(*case, failures, errs)
-    for case in SECOND_CASES:
-        _dense_case(*case, failures, errs, second_best=True)
-    for case in TIE_CASES:
-        _tie_case(*case, failures)
-    for seed in BAND_EQUAL_SEEDS:
-        _band_equal_case(seed, failures)
-    for case in WIDE_CASES:
-        for lr in (False, True):
-            _wide_case(*case, lr, failures)
-    for case in FORCED_TILED_CASES:
-        _forced_tiled_case(*case, failures)
+    # Phase 3: every case of odometry_torch/tools/kernel_parity.py.
+    parity = kernel_parity.run(log=lambda line: print(line, flush=True))
+    failures = [r.label for r in parity if not r.ok]
     if failures:
         raise RuntimeError(f"kernel parity failed: {failures}")
+    errs = {k: [r.err for r in parity if r.kernel == k and r.err is not None]
+            for k in ("band", "full")}
 
     timing = {
         "band": _timing("band", "band [12, 192] lr",
@@ -1395,6 +1198,9 @@ def main() -> int:
     band13, full13 = _cli_phase(card)
     launches["band"] += band13
     launches["full"] += full13
+    band14, full14 = _tools_phase(card)
+    launches["band"] += band14
+    launches["full"] += full14
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

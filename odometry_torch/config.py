@@ -307,6 +307,22 @@ def adapt_to_camera(cfg: PipelineConfig) -> PipelineConfig:
     )
 
 
+def at_size(cfg: PipelineConfig, height: int | None = None,
+            width: int | None = None) -> PipelineConfig:
+    """`cfg` for a camera of `height` x `width` (either may be None: kept):
+    the intrinsics scaled in proportion, then ``adapt_to_camera``. Without
+    either, `cfg` unchanged. The port's tools take their reduced sizes
+    through it."""
+    if height is None and width is None:
+        return cfg
+    c = cfg.camera
+    H, W = height or c.height, width or c.width
+    sx, sy = W / c.width, H / c.height
+    cam = dataclasses.replace(c, fx=c.fx * sx, fy=c.fy * sy, cx=c.cx * sx, cy=c.cy * sy,
+                              height=H, width=W)
+    return adapt_to_camera(dataclasses.replace(cfg, camera=cam))
+
+
 def tum_rgbd_config(fx=525.0, fy=525.0, cx=319.5, cy=239.5) -> PipelineConfig:
     """TUM RGB-D-shaped preset (sensor-depth tracking path, test_optimizer.cpp).
 

@@ -15,3 +15,15 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     return dev
+
+
+def card_line(index: int = 0) -> str:
+    """Card `index`'s name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    line every measurement on the card is written beside)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()

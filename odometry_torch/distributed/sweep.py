@@ -16,6 +16,13 @@ multi-process psum of a mesh that spans hosts.
 
 The reference's ``step_fn_for_mesh`` (the jitted step, cached for the
 scaling harness to compile) has no counterpart: nothing is compiled here.
+
+``COLLECTIVE_BYTES`` counts the bytes the health reduction moves, where it
+runs (``distributed/scaling.py:sweep_scaling_report`` reads it): 4 for
+each sequence's ok count taken to rank 0 from another rank, 8 for the
+reduced pair (the ok count and the number of sequences, as the reference's
+two int32 ``psum`` s), and 8 more for the ``all_reduce`` of that pair when a
+process group exists.
 """
 
 from __future__ import annotations
@@ -42,16 +49,24 @@ def sequence_devices(num_seqs: int, mesh: Mesh) -> list:
     return [devs[s // per_rank] for s in range(num_seqs)]
 
 
-def _global_ok(ok: list, devs: list) -> torch.Tensor:
-    """(sum of `ok` over sequences, in order, on the first sequence's
-    device) == number of sequences, over the process group too when one is
-    initialized."""
+# Bytes moved by _global_ok since the last reset (see the module docstring).
+COLLECTIVE_BYTES = 0
+
+
+def _global_ok(ok: list, mesh: Mesh) -> torch.Tensor:
+    """(sum of `ok` over sequences, in order, on rank 0's device) == number
+    of sequences, over the process group too when one is initialized."""
+    global COLLECTIVE_BYTES
+    devs = sequence_devices(len(ok), mesh)
+    per_rank = len(ok) // len(mesh.axis_devices("seq"))
     total_ok = ok[0].to(torch.int32)
     for o in ok[1:]:
         total_ok = total_ok + o.to(devs[0], torch.int32)
     counts = torch.stack([total_ok, torch.tensor(len(ok), dtype=torch.int32, device=devs[0])])
+    COLLECTIVE_BYTES += 4 * (len(ok) - per_rank) + counts.numel() * counts.element_size()
     if dist.is_available() and dist.is_initialized():
         dist.all_reduce(counts, op=dist.ReduceOp.SUM)
+        COLLECTIVE_BYTES += counts.numel() * counts.element_size()
     return counts[0] == counts[1]
 
 
@@ -75,7 +90,7 @@ def batched_step(states: list, left_b, right_b, cfg: PipelineConfig, mesh: Mesh)
         s, out = step(state, to_dev(left, d), to_dev(right, d), cfg)
         new_states.append(s)
         outs.append(out)
-    return new_states, outs, _global_ok([o.depth_ok for o in outs], devs)
+    return new_states, outs, _global_ok([o.depth_ok for o in outs], mesh)
 
 
 def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,
@@ -99,8 +114,7 @@ def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,
     frame = lambda i, k: [f[i][k] for f in frames_per_seq]
     states = batched_init(frame(0, 0), frame(0, 1), cfg, mesh)
     if progress is not None:
-        devs = sequence_devices(num_seqs, mesh)
-        progress(0, states, None, _global_ok([s.healthy for s in states], devs))
+        progress(0, states, None, _global_ok([s.healthy for s in states], mesh))
     poses = [[s.cur_pose for s in states]]
     for i in range(1, num_frames):
         states, outs, global_ok = batched_step(states, frame(i, 0), frame(i, 1), cfg, mesh)

@@ -458,3 +458,38 @@ def test_cli_run_kitti_fast_on_the_card_gives_the_cpu_keyframes(card, tmp_path, 
     ids = lambda dev: (tmp_path / dev / "vis" / "keyframe_ids" / "keyframe_id.txt").read_text()
     assert reports["cuda"]["keyframes"] == reports["cpu"]["keyframes"]
     assert ids("cuda") == ids("cpu")
+
+
+def test_kernel_parity_harness_passes_every_case(card):
+    """odometry_torch/tools/kernel_parity.py: tools/tpu_parity.py's band,
+    full and dense cases at its sizes, and the presets' cases."""
+    from odometry_torch.tools import kernel_parity
+
+    assert kernel_parity.main([]) == 0
+
+
+def test_scaling_report_times_the_card(card):
+    from odometry_torch.distributed.scaling import sweep_scaling_report
+
+    rows = sweep_scaling_report(CFG, [1, 2], timed=True)
+    assert [r["n"] for r in rows] == [1, 2]
+    assert all(r["steps_per_s"] > 0 for r in rows)
+    assert [r["collective_bytes"] for r in rows] == [8, 12]
+    # Rank 0 steps the same sequence at both sizes: the mesh adds only the
+    # health reduction's few operations to its work. (The other rank's
+    # scene may need more LM iterations: work depends on the data.)
+    assert 0 < rows[1]["ops_by_rank"][0] - rows[0]["ops_by_rank"][0] <= 4
+
+
+def test_device_trace_sees_the_cards_kernels(card, tmp_path):
+    from odometry_torch.utils.profiling import device_trace, trace_summary
+
+    left, right = _stereo(HS, WS, 0, card)
+    with device_trace(str(tmp_path)) as prof:
+        disparity_band.LAUNCHES = 0
+        compute_depth(left, right, CAM_CFG, CFG.depth)
+    summ = trace_summary(prof)
+    assert summ["device_busy_ms"] > 0 and summ["device_launches"] >= disparity_band.LAUNCHES >= 1
+    assert 0.0 <= summ["idle_share"] < 1.0
+    assert any("band_kernel" in op["name"] for op in trace_summary(prof, top=None)["top_device_ops"])
+    assert list(tmp_path.glob("trace-*.json"))

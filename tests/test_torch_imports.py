@@ -47,4 +47,7 @@ def test_port_and_chip_smoke_import_no_jax():
             "odometry_torch.data.middlebury", "odometry_torch.data.native_loader",
             "odometry_torch.camera.calibration", "odometry_torch.eval.export",
             "odometry_torch.eval.disparity_eval", "odometry_torch.utils.checkpoint",
-            "odometry_torch.utils.debug"} <= set(modules)
+            "odometry_torch.utils.debug", "odometry_torch.utils.profiling",
+            "odometry_torch.distributed.scaling", "odometry_torch.tools",
+            "odometry_torch.tools.accuracy_sweep", "odometry_torch.tools.kernel_parity",
+            "odometry_torch.tools.profile_step"} <= set(modules)
