@@ -25,7 +25,8 @@ prints no result line):
    band (and B2 on the same band beside it), B2 on the full search and on
    accurate_config's band [12, 1241], each as the device time of
    back-to-back calls and as CUDA events around one call (which also hold
-   the host's enqueue);
+   the host's enqueue); and B1 and B2 on a batch of 3 frames in one call
+   beside 3 single calls and the bound for the batch;
 5. the fast_config odometry path end to end at 376x1241 (the workload of
    ``bench.py``): 3 trajectory seeds x 49 frames rendered on the card with
    the texture phase rounded as bench.py's TPU rounded it (``tpu_phase_scene``),
@@ -44,10 +45,20 @@ prints no result line):
    the full width (8 ranks of 7 x 16384 float32) 200 times back to back,
    and the kernel, plain-version and ``torch.cat`` times beside the bound at
    full width and above the L2 (8 ranks of 7 x 131072 float32);
-10. the sweep: ``run_sweep`` of fast_config on ``sequence_mesh(3)`` (three
-    virtual ranks of the card) over phase 5's frames, gated as phase 5, with
-    ``global_ok`` on every frame; one keyframe store per sequence filled as
-    ``run_slam`` fills it (frame 0 and every promotion);
+10. the sweep: ``run_sweep`` of fast_config over phase 5's frames (a) on
+    ``sequence_mesh(3)`` (three virtual ranks of the card, one sequence
+    each) and (b) on ``sequence_mesh(1)`` (one rank stepping the three as
+    one batch, ``step_batch``), each gated as phase 5 with ``global_ok`` on
+    every frame and B1 launched once per depth run of a rank (for (b): init
+    and each step with a keyframe candidate in the batch), (b) also on
+    ``run_sequence``'s keyframes (the largest per-frame translation gap
+    printed) and on fewer host reads per step than (a) (counted with
+    ``torch.cuda.set_sync_debug_mode``); one keyframe store per sequence
+    filled as ``run_slam`` fills it (frame 0 and every promotion); (c) the
+    KITTI sweep's 22 sequences (the driving family, 13 frames each at
+    376x1241) batched on one rank and in turn on 22, in turns batched, in
+    turn, batched: sequence-frames/s, peak device memory, median mte (gate
+    < 0.15), ``global_ok`` frames;
 11. the stores' BA windows: the ring on their window poses and point blocks
     (bit for bit against the plain version), ``ba_solve`` motion-only (as
     ``run_slam`` runs it) and with free depths, and ``ba_solve_sharded`` on
@@ -108,6 +119,7 @@ import shutil
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -128,7 +140,7 @@ from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
 from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh
 from odometry_torch.distributed.scaling import format_scaling_table, sweep_scaling_report
-from odometry_torch.distributed.sweep import run_sweep
+from odometry_torch.distributed.sweep import run_sweep, sequence_view
 from odometry_torch.eval.export import load_kitti_poses, save_kitti_poses
 from odometry_torch.eval.metrics import mean_translation_error
 from odometry_torch.kernels import _build, disparity_band, disparity_full
@@ -205,6 +217,41 @@ def _tiled_timing(card):
         shown = ", ".join(f"{r} " + " / ".join(f"{t:.4f}" for t in v) for r, v in times.items())
         print(f"timing {KITTI[0]}x{KITTI[1]} {kernel} {label}: {shown} ms (device time of "
               f"back-to-back calls, in turns {'-'.join(order)}) [{card}]", flush=True)
+
+
+BATCH_TIMING = 3  # images of the batched timing at KITTI size
+
+
+def _batch_timing(card):
+    """A batch of BATCH_TIMING frames at KITTI size in one call against one
+    call per frame (device time of back-to-back calls, in turns batched,
+    single, single, batched), beside the bound for the batch's work (the
+    batch's pairs and bytes, BATCH_TIMING x one frame's). Returns {kernel:
+    (batched ms, single ms for the batch, bound ms, bound_by)}."""
+    out = {}
+    B = BATCH_TIMING
+    for kernel, max_d, label in (("band", 192, "band [12, 192] lr"),
+                                 ("full", None, "full search lr")):
+        fn, _ = KERNELS[kernel]
+        kw = dict(boundary=4, min_disparity=MIN_D if kernel == "band" else None,
+                  max_disparity=max_d, lr=True)
+        ls, rs = kernel_parity.batch_images((B, *KITTI), "frames")
+        runs = {"batched": lambda: fn(ls, rs, **kw),
+                "single": lambda: [fn(a, b, **kw) for a, b in zip(ls, rs)]}
+        times = {r: [] for r in runs}
+        for r in ("batched", "single", "single", "batched"):
+            times[r].append(_device_ms(runs[r], 20))
+        one_ms, bound_by = _bound(*KITTI, 4, kw["min_disparity"], max_d, True)
+        bound_ms = B * one_ms
+        batched, single = (float(np.median(times[r])) for r in ("batched", "single"))
+        print(f"timing batch {B}x{KITTI[0]}x{KITTI[1]} {kernel} {label}: one batched call "
+              f"{' / '.join(f'{t:.4f}' for t in times['batched'])} ms, {B} single calls "
+              f"{' / '.join(f'{t:.4f}' for t in times['single'])} ms (device time of "
+              f"back-to-back calls, in turns batched-single-single-batched); bound for the "
+              f"batch {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / batched:.1f}% of it "
+              f"[{card}]", flush=True)
+        out[kernel] = (batched, single, bound_ms, bound_by)
+    return out
 
 
 def _time_ms(fn, reps):
@@ -557,25 +604,49 @@ def _state_devices_ok(states, mesh) -> bool:
                for leaves, dev in zip(map(_state_leaves, states), mesh.axis_devices("seq")))
 
 
-def _sweep_phase(card, runs, single_results):
-    """Phase 10: run_sweep of fast_config on sequence_mesh(3) over phase 5's
-    frames, gated as phase 5, global_ok on every frame; fills one keyframe
-    store per sequence as run_slam does (pipeline/slam.py:124-128,200-205)
-    and returns the stores."""
-    cfg = fast_config()
+class _HostReads:
+    """Counts the host reads (device-to-host synchronisations: ``bool`` of a
+    card tensor, ``.cpu()``, ``nonzero``) made while it is active, through
+    ``torch.cuda.set_sync_debug_mode``, which turns each into a warning."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+
+    @property
+    def count(self) -> int:
+        return sum("synchroniz" in str(w.message) for w in self._log)
+
+
+def _sweep_run(cfg, frames_per_seq, mesh):
+    """run_sweep of `frames_per_seq` on `mesh` with the launch counts set to
+    0 just before and the host reads counted, filling one keyframe store per
+    sequence as run_slam does (pipeline/slam.py:124-128,200-205) from its
+    ``sequence_view``. Returns a dict: poses, summaries (per sequence), health,
+    stores, final states, seconds, launches (B1, B2, B3), host reads of the
+    init, of the steps (the progress callback's own reads excluded)."""
     c = cfg.camera
-    frames_per_seq = [frames for _, _, frames in runs]
-    mesh = sequence_mesh(len(runs))
-    summaries = [[] for _ in runs]
-    health = []
-    stores = []
-    paths = [[0.0, None] for _ in runs]  # trajectory length, last position
-    final = []
+    S = len(frames_per_seq)
+    summaries = [[] for _ in range(S)]
+    health, stores, final = [], [], []
+    paths = [[0.0, None] for _ in range(S)]  # trajectory length, last position
+    marks = {"init": 0, "callback": 0}
 
     def on_frame(i, states, outs, global_ok):
+        entry = reads.count
+        if outs is None:
+            marks["init"] = entry
         health.append(bool(global_ok))
         final[:] = [states]
-        for s, state in enumerate(states):
+        for s in range(S):
+            state = sequence_view(states, s)
             kf = state.kf_track[0]
             if outs is None:
                 stores.append(insert_keyframe(
@@ -584,7 +655,7 @@ def _sweep_phase(card, runs, single_results):
                     kf.pts, kf.intensity, state.kf_pose, 0, image=state.kf_pyr[0]))
                 paths[s][1] = np.zeros(3, np.float32)
                 continue
-            summ = outs[s].summary.cpu().numpy()
+            summ = sequence_view(outs, s).summary.cpu().numpy()
             summaries[s].append(summ)
             pos = summ[:16].reshape(4, 4)[:3, 3]
             paths[s][0] += float(np.linalg.norm(pos - paths[s][1]))
@@ -592,46 +663,142 @@ def _sweep_phase(card, runs, single_results):
             if summ[32] > 0.5:  # promoted
                 stores[s] = insert_keyframe(stores[s], kf.pts, kf.intensity, state.kf_pose, i,
                                             image=state.kf_pyr[0], path=paths[s][0])
+        marks["callback"] += reads.count - entry
 
     _reset_counts()  # count this path's launches only
-    t0 = time.perf_counter()
-    poses = run_sweep(frames_per_seq, cfg, mesh, progress=on_frame)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    band, full, ring = _counts()
+    with _HostReads() as reads:
+        t0 = time.perf_counter()
+        poses = run_sweep(frames_per_seq, cfg, mesh, progress=on_frame)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total = reads.count
+    return dict(poses=poses, summaries=[np.stack(x) for x in summaries], health=health,
+                stores=stores, final=final[0], seconds=seconds, launches=_counts(),
+                init_reads=marks["init"], step_reads=total - marks["init"] - marks["callback"])
 
+
+def _depth_runs(summaries) -> np.ndarray:
+    """(frames, S) bool: sequence s ran depth at step i (survivors or a
+    failed depth); init is not in it."""
+    return np.stack([(sm[:, 37] > 0) | (sm[:, 34] < 0.5) for sm in summaries], axis=1)
+
+
+def _sweep_phase(card, runs, single_results):
+    """Phase 10: phase 5's frames swept (a) on sequence_mesh(3), one sequence
+    per virtual rank of the card, and (b) on sequence_mesh(1), one rank
+    stepping the three as one batch; each gated as phase 5, global_ok on
+    every frame; (b) also on run_sequence's keyframes, B1 launched once per
+    batched depth run, and fewer host reads per step than (a)'s. Then (c),
+    the KITTI sweep's 22 sequences batched and in turn (:func:`_kitti_sweep`).
+    Returns (a)'s keyframe stores, one per sequence, and the B1 launches of
+    (b) and (c)."""
+    cfg = fast_config()
+    frames_per_seq = [frames for _, _, frames in runs]
     num_frames = len(frames_per_seq[0])
-    depth_runs, mtes = 0, []
-    for s, (seed, truth, _) in enumerate(runs):
-        summ = np.stack(summaries[s])
-        depth_runs += 1 + int(((summ[:, 37] > 0) | (summ[:, 34] < 0.5)).sum())
-        kf_ids = [0] + [i + 1 for i in np.nonzero(summ[:, 32] > 0.5)[0].tolist()]
-        mte = mean_translation_error(truth, poses[s])
-        mtes.append(mte)
-        gap = float(np.abs(poses[s][:, :3, 3] - single_results[s].poses[:, :3, 3]).max())
-        print(f"sweep seed={seed}: mte={mte:.6f} keyframes={kf_ids} (run_sequence: "
-              f"{single_results[s].keyframe_ids}) max per-frame translation gap to "
-              f"run_sequence={gap:.6e} m [{card}]", flush=True)
-    med = float(np.median(mtes))
-    rate = len(runs) * (num_frames - 1) / seconds
-    print(f"sweep: {len(runs)} sequences x {num_frames} frames on {mesh.size} virtual ranks of "
-          f"{mesh.devices[0]}: median mte={med:.6f} (gate < 0.15), global_ok on "
-          f"{sum(health)}/{len(health)} frames, {rate:.3f} sequence-frames/s "
-          f"({seconds:.3f} s, store inserts included); band-kernel launches={band}, "
-          f"full-search launches={full}, ring launches={ring}, depth runs={depth_runs} "
+    layouts = {"(a) one per rank": sequence_mesh(len(runs)),
+               "(b) one batch": sequence_mesh(1)}
+    results = {name: _sweep_run(cfg, frames_per_seq, mesh) for name, mesh in layouts.items()}
+    for name, mesh in layouts.items():
+        r = results[name]
+        band, full, ring = r["launches"]
+        ran = _depth_runs(r["summaries"])
+        # One depth run per rank and step with a candidate among its sequences.
+        per_rank = len(runs) // mesh.size
+        depth_runs = mesh.size + int(ran.reshape(len(ran), mesh.size, per_rank).any(2).sum())
+        mtes, gaps = [], []
+        for s, (seed, truth, _) in enumerate(runs):
+            summ = r["summaries"][s]
+            kf_ids = [0] + [i + 1 for i in np.nonzero(summ[:, 32] > 0.5)[0].tolist()]
+            mte = mean_translation_error(truth, r["poses"][s])
+            mtes.append(mte)
+            gap = float(np.abs(r["poses"][s][:, :3, 3]
+                               - single_results[s].poses[:, :3, 3]).max())
+            gaps.append(gap)
+            print(f"sweep {name} seed={seed}: mte={mte:.6f} keyframes={kf_ids} (run_sequence: "
+                  f"{single_results[s].keyframe_ids}) max per-frame translation gap to "
+                  f"run_sequence={gap:.6e} m [{card}]", flush=True)
+            if name.startswith("(b)") and kf_ids != single_results[s].keyframe_ids:
+                raise RuntimeError(f"sweep {name} seed {seed}: keyframes {kf_ids} differ from "
+                                   f"run_sequence's {single_results[s].keyframe_ids}")
+        med = float(np.median(mtes))
+        health = r["health"]
+        rate = len(runs) * (num_frames - 1) / r["seconds"]
+        steps = num_frames - 1
+        print(f"sweep {name}: {len(runs)} sequences x {num_frames} frames on {mesh.size} "
+              f"virtual rank(s) of {mesh.devices[0]}: median mte={med:.6f} (gate < 0.15), "
+              f"global_ok on {sum(health)}/{len(health)} frames, {rate:.3f} sequence-frames/s "
+              f"({r['seconds']:.3f} s, store inserts and the host-read counter included); "
+              f"band-kernel launches={band}, full-search launches={full}, ring launches={ring}, "
+              f"depth runs={depth_runs}; host reads: init {r['init_reads']}, steps "
+              f"{r['step_reads']} ({r['step_reads'] / steps:.2f} per step); largest per-frame "
+              f"translation gap to run_sequence {max(gaps):.6e} m [{card}]", flush=True)
+        if not med < 0.15:
+            raise RuntimeError(f"sweep {name} median mte {med} fails the gate 0.15 ({mtes})")
+        if not all(health):
+            raise RuntimeError(f"sweep {name}: global_ok False on {health.count(False)} frames")
+        if band == 0 or band != depth_runs * _per_call(cfg) or full != 0:
+            raise RuntimeError(f"sweep {name}: band launches {band} (depth runs {depth_runs}), "
+                               f"full-search launches {full}")
+        if not _state_devices_ok(r["final"], mesh):
+            raise RuntimeError(f"sweep {name}: a state tensor is not on its rank's device")
+    a, b = (results[name] for name in layouts)
+    print(f"sweep: host reads per step, one batch {b['step_reads'] / steps:.2f} against "
+          f"{a['step_reads'] / steps:.2f} stepping the {len(runs)} sequences in turn "
           f"[{card}]", flush=True)
-    if not med < 0.15:
-        raise RuntimeError(f"sweep median mte {med} fails the gate 0.15 ({mtes})")
-    if not all(health):
-        raise RuntimeError(f"sweep: global_ok False on {health.count(False)} frames")
-    if band == 0 or band != depth_runs * _per_call(cfg) or full != 0:
-        raise RuntimeError(f"sweep: band launches {band} (depth runs {depth_runs}), "
-                           f"full-search launches {full}")
-    if not _state_devices_ok(final[0], mesh):
-        raise RuntimeError("sweep: a state tensor is not on its rank's device of the card")
-    print(f"sweep: every state tensor of the {len(runs)} ranks on {mesh.devices[0]}",
-          flush=True)
-    return stores
+    if not b["step_reads"] < a["step_reads"]:
+        raise RuntimeError(f"sweep: the batch made {b['step_reads']} host reads in its steps, "
+                           f"not fewer than the {a['step_reads']} of the steps in turn")
+    print(f"sweep: every state tensor on {layouts['(a) one per rank'].devices[0]}", flush=True)
+    return a["stores"], b["launches"][0] + _kitti_sweep(card)
+
+
+KITTI_SWEEP = (22, 13)  # the KITTI benchmark's sequences, frames each
+
+
+def _kitti_sweep(card) -> int:
+    """Phase 10 (c): fast_config on the driving family at 376x1241 for the
+    KITTI sweep's 22 sequences (make_driving_scene(s, side_x=20, wall_z=26),
+    drive_trajectory(13, step=0.25, seed=s), s = 0..21), batched on
+    sequence_mesh(1) and in turn on sequence_mesh(22), in turns batched, in
+    turn, batched: sequence-frames/s, peak device memory, median mte (gate <
+    0.15 on each run), global_ok frames. Returns the batched runs' B1
+    launches."""
+    cfg = fast_config()
+    S, F = KITTI_SWEEP
+    runs = _driving_frames(range(S), F, cfg)
+    frames_per_seq = [frames for _, frames in runs.values()]
+    layouts = (("batched", 1), ("in turn", S), ("batched", 1))
+    band_total = 0
+    for name, n in layouts:
+        mesh = sequence_mesh(n)
+        health = []
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        poses = run_sweep(frames_per_seq, cfg, mesh,
+                          progress=lambda i, st, outs, ok: health.append(ok))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        band, full, _ = _counts()
+        ok_frames = sum(bool(ok) for ok in health)
+        mtes = [mean_translation_error(truth, poses[s]) for s, (truth, _) in
+                enumerate(runs.values())]
+        med = float(np.median(mtes))
+        print(f"kitti sweep {name}: {S} sequences x {F} frames at {cfg.camera.height}x"
+              f"{cfg.camera.width} on {n} virtual rank(s): {S * (F - 1) / seconds:.3f} "
+              f"sequence-frames/s ({seconds:.3f} s for init and {F - 1} steps), peak device "
+              f"memory {peak:.3f} GiB, median mte={med:.6f} (gate < 0.15), max mte="
+              f"{max(mtes):.6f}, global_ok on {ok_frames}/{len(health)} frames; band-kernel "
+              f"launches={band}, full-search launches={full} [{card}]", flush=True)
+        if not med < 0.15:
+            raise RuntimeError(f"kitti sweep {name}: median mte {med} fails the gate 0.15")
+        if full != 0:
+            raise RuntimeError(f"kitti sweep {name}: launched the full-search kernel")
+        if name == "batched":
+            band_total += band
+    return band_total
 
 
 def _store_ba_phase(card, stores):
@@ -1187,12 +1354,14 @@ def main() -> int:
     _timing("full", f"band [12, {W_KITTI}] lr",
             dict(boundary=4, min_disparity=MIN_D, max_disparity=W_KITTI, lr=True), card)
     _tiled_timing(card)
+    _batch_timing(card)
 
     band_launches, e2e_runs, e2e_results = _e2e(card)
     launches = {"band": band_launches, "full": _e2e_full_search(card)}
 
     timing["ring"], errs["ring"] = _ring_phase(card)
-    stores = _sweep_phase(card, e2e_runs, e2e_results)
+    stores, band10 = _sweep_phase(card, e2e_runs, e2e_results)
+    launches["band"] += band10
     launches["ring"] = _store_ba_phase(card, stores)
     launches["band"] += _slam_phase(card)
     band13, full13 = _cli_phase(card)

@@ -65,46 +65,51 @@ template <bool kRev>
 __global__ void __launch_bounds__(ssd_row::kThreads, 2)
 full_tile_kernel(const float* __restrict__ left, const float* __restrict__ right,
                  unsigned long long* __restrict__ fkey, unsigned long long* __restrict__ rkey,
-                 int H, int W, int boundary, int min_d, int max_d) {
+                 int tiles_c, int H, int W, int boundary, int min_d, int max_d) {
   extern __shared__ unsigned long long smem[];
-  ssd_row::search_tile<Blocking, kRev>(smem, left, right, fkey, rkey, H, W, boundary, min_d,
-                                       max_d);
+  ssd_row::search_tile<Blocking, kRev>(smem, left, right, fkey, rkey, tiles_c, H, W, boundary,
+                                       min_d, max_d);
 }
 
 }  // namespace
 
-// Launches the search on `stream`: forward and reverse winners from one pass
-// when rmatch is not null, forward only otherwise. second may be null.
+// Launches the search of `batch` (H, W) images, stored one after another, on
+// `stream`: forward and reverse winners from one pass when rmatch is not
+// null, forward only otherwise. second may be null.
 // Requires 1 <= min_d <= max_d and a width whose keys and planes fit a
 // block's shared memory (the wrapper picks the route). Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int disparity_full_launch(const float* left, const float* right, float* best,
-                                     int* match, int* rmatch, float* second, int H, int W,
-                                     int boundary, int min_d, int max_d, int second_excl,
+                                     int* match, int* rmatch, float* second, int batch, int H,
+                                     int W, int boundary, int min_d, int max_d, int second_excl,
                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rmatch != nullptr)
     return ssd_row::launch<Blocking, true>(full_kernel<true>, left, right, best, match, rmatch,
-                                           second, H, W, boundary, min_d, max_d, second_excl, s);
+                                           second, batch, H, W, boundary, min_d, max_d,
+                                           second_excl, s);
   return ssd_row::launch<Blocking, false>(full_kernel<false>, left, right, best, match, rmatch,
-                                          second, H, W, boundary, min_d, max_d, second_excl, s);
+                                          second, batch, H, W, boundary, min_d, max_d,
+                                          second_excl, s);
 }
 
 // The same search by the tiled route (three launches: fill the keys, search
 // the tiles, unpack), for a width whose keys and planes do not fit one block;
-// `keys` is H * W 8-byte words of scratch, 2 * H * W when rmatch is not null.
+// `keys` is batch * H * W 8-byte words of scratch, twice that when rmatch is
+// not null.
 // Gives the bits of disparity_full_launch at any width. Returns the
 // first cudaError_t of the three launches (0 on success).
 extern "C" int disparity_full_tiled_launch(const float* left, const float* right, float* best,
                                            int* match, int* rmatch, float* second,
-                                           unsigned long long* keys, int H, int W, int boundary,
-                                           int min_d, int max_d, int second_excl, void* stream) {
+                                           unsigned long long* keys, int batch, int H, int W,
+                                           int boundary, int min_d, int max_d, int second_excl,
+                                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rmatch != nullptr)
     return ssd_row::launch_tiled<Blocking, true>(full_tile_kernel<true>, left, right, best, match,
-                                                 rmatch, second, keys, H, W, boundary, min_d,
-                                                 max_d, second_excl, s);
+                                                 rmatch, second, keys, batch, H, W, boundary,
+                                                 min_d, max_d, second_excl, s);
   return ssd_row::launch_tiled<Blocking, false>(full_tile_kernel<false>, left, right, best,
-                                                match, rmatch, second, keys, H, W, boundary,
-                                                min_d, max_d, second_excl, s);
+                                                match, rmatch, second, keys, batch, H, W,
+                                                boundary, min_d, max_d, second_excl, s);
 }

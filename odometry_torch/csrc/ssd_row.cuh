@@ -58,6 +58,12 @@
 //   reverse winners, 5,606 without) take the tiled route at the end of this
 //   file: the same walk on (row, query tile, candidate tile) blocks, keys
 //   merged in device memory, bit for bit the one-block route's answer.
+// - A batch of B images of one shape is one launch on either route: the
+//   image is a grid coordinate (blockIdx.y on the one-block route, the slow
+//   part of blockIdx.x on the tiled one) and every pointer is offset by
+//   b * H * W. The batch is never folded into B * H rows: pattern8() reads
+//   the rows next to y and clamps at H, so a folded image's last row would
+//   read the next image's first rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -284,9 +290,10 @@ __device__ __forceinline__ void walk_groups(int Xa, int Xb, int c_lo_pair, int c
   }
 }
 
-// One block per row y = blockIdx.x, blockDim.x = kThreads, staged_bytes<B>(W,
-// kRev) of dynamic shared memory at `smem`. rmatch is written with kRev;
-// second may be null. Requires 1 <= min_d <= max_d.
+// One block per row y = blockIdx.x of image blockIdx.y (every pointer is the
+// batch's base), blockDim.x = kThreads, staged_bytes<B>(W, kRev) of dynamic
+// shared memory at `smem`. rmatch is written with kRev; second may be null.
+// Requires 1 <= min_d <= max_d.
 template <class B, bool kRev>
 __device__ __forceinline__ void search_row(unsigned long long* smem, const float* left,
                                            const float* right, float* best, int* match,
@@ -300,6 +307,13 @@ __device__ __forceinline__ void search_row(unsigned long long* smem, const float
   float4* plo = reinterpret_cast<float4*>(smem + key_words(W, kRev, kPad));
   float4* phi = plo + W + 2 * kPad;
   const int y = blockIdx.x;
+  const size_t image = static_cast<size_t>(blockIdx.y) * H * W;
+  left += image;
+  right += image;
+  best += image;
+  match += image;
+  if (kRev) rmatch += image;
+  if (second != nullptr) second += image;
   const int b = max(boundary, 0);
   const unsigned long long none = pack(kBig, 0);
   const float inf = __int_as_float(0x7f800000);
@@ -355,19 +369,21 @@ __device__ __forceinline__ void search_row(unsigned long long* smem, const float
 }
 
 // Launches `kernel` (a __global__ wrapper of search_row<B, kRev>) with one
-// block per row on `stream`; returns the cudaError_t of the launch.
+// block per row of each of the `batch` images on `stream`; returns the
+// cudaError_t of the launch.
 template <class B, bool kRev, class Kernel>
 int launch(Kernel kernel, const float* left, const float* right, float* best, int* match,
-           int* rmatch, float* second, int H, int W, int boundary, int min_d, int max_d,
-           int second_excl, cudaStream_t stream) {
+           int* rmatch, float* second, int batch, int H, int W, int boundary, int min_d,
+           int max_d, int second_excl, cudaStream_t stream) {
   const size_t smem = staged_bytes<B>(W, kRev);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<H, kThreads, smem, stream>>>(left, right, best, match, rmatch, second, H, W, boundary,
-                                        min_d, max_d, second_excl);
+  const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(batch));
+  kernel<<<grid, kThreads, smem, stream>>>(left, right, best, match, rmatch, second, H, W,
+                                           boundary, min_d, max_d, second_excl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -406,21 +422,28 @@ __global__ void fill_keys(unsigned long long* keys, long long n) {
     keys[i] = none;
 }
 
-// Row y = blockIdx.z, query tile blockIdx.y, candidate tile blockIdx.x;
-// blockDim.x = kThreads, tile_bytes<B>(kRev) of dynamic shared memory.
-// gfkey/grkey: (H, W) key buffers filled by fill_keys (grkey with kRev).
+// Row y = blockIdx.z, query tile blockIdx.y, image blockIdx.x / tiles_c and
+// candidate tile blockIdx.x % tiles_c; blockDim.x = kThreads,
+// tile_bytes<B>(kRev) of dynamic shared memory. gfkey/grkey: (batch, H, W)
+// key buffers filled by fill_keys (grkey with kRev).
 template <class B, bool kRev>
 __device__ __forceinline__ void search_tile(unsigned long long* smem, const float* left,
                                             const float* right, unsigned long long* gfkey,
-                                            unsigned long long* grkey, int H, int W,
-                                            int boundary, int min_d, int max_d) {
+                                            unsigned long long* grkey, int tiles_c, int H,
+                                            int W, int boundary, int min_d, int max_d) {
   constexpr int kPad = B::kPad;
   const int y = blockIdx.z;
+  const int tile_c = static_cast<int>(blockIdx.x) % tiles_c;
+  const size_t image = static_cast<size_t>(blockIdx.x / tiles_c) * H * W;
+  left += image;
+  right += image;
+  gfkey += image;
+  if (kRev) grkey += image;
   const int Q0 = blockIdx.y * kTileQ;
   const int Q1 = min(W, Q0 + kTileQ);
   // The query tile's candidates are [max(b, Q0 - max_d), Q1 - min_d); this
-  // block's are the blockIdx.x-th kTileC of them.
-  const int C0 = max(max(boundary, 0), Q0 - max_d) + static_cast<int>(blockIdx.x) * kTileC;
+  // block's are the tile_c-th kTileC of them.
+  const int C0 = max(max(boundary, 0), Q0 - max_d) + tile_c * kTileC;
   const int C1 = min(Q1 - min_d, C0 + kTileC);
   if (C0 >= C1) return;  // the same for the whole block
   const int n = C1 - C0 + 2 * kPad;  // candidate columns C0 - kPad .. C1 + kPad - 1
@@ -465,20 +488,25 @@ __device__ __forceinline__ void search_tile(unsigned long long* smem, const floa
   }
 }
 
-// One thread per pixel: best/match (and rmatch when rkey is not null) from
-// the merged keys; second, when not null, as search_row() computes it.
+// One thread per pixel of the `batch` images: best/match (and rmatch when
+// rkey is not null) from the merged keys; second, when not null, as
+// search_row() computes it.
 __global__ void finish_keys(const unsigned long long* fkey, const unsigned long long* rkey,
                             const float* left, const float* right, float* best, int* match,
-                            int* rmatch, float* second, int H, int W, int boundary, int min_d,
-                            int max_d, int second_excl) {
+                            int* rmatch, float* second, int batch, int H, int W, int boundary,
+                            int min_d, int max_d, int second_excl) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= static_cast<long long>(H) * W) return;
+  const long long pixels = static_cast<long long>(H) * W;
+  if (i >= batch * pixels) return;
   const unsigned long long f = fkey[i];
   best[i] = __uint_as_float(static_cast<unsigned>(f >> 32));
   match[i] = static_cast<int>(f & 0xffffffffu);
   if (rkey != nullptr) rmatch[i] = static_cast<int>(rkey[i] & 0xffffffffu);
   if (second == nullptr) return;
-  const int y = static_cast<int>(i / W);
+  const long long image = i / pixels * pixels;
+  left += image;
+  right += image;
+  const int y = static_cast<int>(i % pixels / W);
   const int x = static_cast<int>(i % W);
   const int m = static_cast<int>(f & 0xffffffffu);
   float q[8];
@@ -495,12 +523,13 @@ __global__ void finish_keys(const unsigned long long* fkey, const unsigned long 
   second[i] = b2;
 }
 
-// Launches the tiled route on `stream`: `kernel` is a __global__ wrapper of
-// search_tile<B, kRev>; `keys` holds H * W keys, 2 * H * W with kRev.
-// Returns the first cudaError_t of the three launches (0 on success).
+// Launches the tiled route for `batch` images on `stream`: `kernel` is a
+// __global__ wrapper of search_tile<B, kRev>; `keys` holds batch * H * W
+// keys, twice that with kRev. Returns the first cudaError_t of the three
+// launches (0 on success).
 template <class B, bool kRev, class Kernel>
 int launch_tiled(Kernel kernel, const float* left, const float* right, float* best, int* match,
-                 int* rmatch, float* second, unsigned long long* keys, int H, int W,
+                 int* rmatch, float* second, unsigned long long* keys, int batch, int H, int W,
                  int boundary, int min_d, int max_d, int second_excl, cudaStream_t stream) {
   const size_t smem = tile_bytes<B>(kRev);
   if (smem > 48 * 1024) {
@@ -508,7 +537,7 @@ int launch_tiled(Kernel kernel, const float* left, const float* right, float* be
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long pixels = static_cast<long long>(H) * W;
+  const long long pixels = static_cast<long long>(batch) * H * W;
   unsigned long long* fkey = keys;
   unsigned long long* rkey = kRev ? keys + pixels : nullptr;
   const long long n = kRev ? 2 * pixels : pixels;
@@ -521,13 +550,15 @@ int launch_tiled(Kernel kernel, const float* left, const float* right, float* be
   // kTileQ + min(max_d, W) - min_d columns.
   const int span = kTileQ + (max_d < W ? max_d : W) - min_d;
   const int tiles_c = (span + kTileC - 1) / kTileC;
-  const dim3 grid(static_cast<unsigned>(tiles_c > 1 ? tiles_c : 1),
+  const int tiles = tiles_c > 1 ? tiles_c : 1;
+  const dim3 grid(static_cast<unsigned>(tiles) * static_cast<unsigned>(batch),
                   static_cast<unsigned>((W + kTileQ - 1) / kTileQ), static_cast<unsigned>(H));
-  kernel<<<grid, kThreads, smem, stream>>>(left, right, fkey, rkey, H, W, boundary, min_d, max_d);
+  kernel<<<grid, kThreads, smem, stream>>>(left, right, fkey, rkey, tiles, H, W, boundary, min_d,
+                                           max_d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   finish_keys<<<static_cast<unsigned>((pixels + 255) / 256), 256, 0, stream>>>(
-      fkey, rkey, left, right, best, match, rmatch, second, H, W, boundary, min_d, max_d,
+      fkey, rkey, left, right, best, match, rmatch, second, batch, H, W, boundary, min_d, max_d,
       second_excl);
   return static_cast<int>(cudaGetLastError());
 }

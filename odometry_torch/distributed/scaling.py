@@ -21,6 +21,12 @@ two views, as the reference's does:
   against size 1. The virtual ranks of one card step in turn
   (``sweep.batched_step``), so on one card it reads about 100/n %; across
   ranks on separate cards it is the weak-scaling number itself.
+
+Both views measure the weak-scaling layout, n sequences on n ranks, one per
+rank (a batch of 1 each). A rank's batch is one ``step_batch``, so a rank
+with a batch of b dispatches about as many operations as a rank with a batch
+of 1: the analytic view counts launches, not the work inside them, and does
+not see what a larger batch per rank does.
 """
 
 from __future__ import annotations
@@ -98,21 +104,20 @@ def _launches() -> int:
 
 
 def _rank_work(states, lefts, rights, cfg: PipelineConfig, mesh: Mesh):
-    """One sweep step as ``sweep.batched_step`` runs it (each sequence's
-    ``step`` in turn, then the health reduction on rank 0), counted: returns
-    ([device operations + kernel launches of each rank], bytes the health
-    reduction moved)."""
-    n_ranks = len(mesh.axis_devices("seq"))
-    per_rank = len(states) // n_ranks
-    work = [0] * n_ranks
+    """One sweep step as ``sweep.batched_step`` runs it (each rank's
+    ``step_batch`` in turn, then the health reduction on rank 0), counted:
+    returns ([device operations + kernel launches of each rank], bytes the
+    health reduction moved)."""
+    work = [0] * len(states)
     counter = _OpCounter()
     bytes0 = sweep.COLLECTIVE_BYTES
+    frames = zip(sweep.rank_frames(lefts, mesh), sweep.rank_frames(rights, mesh))
     with counter:
         outs = []
-        for s, (state, left, right) in enumerate(zip(states, lefts, rights)):
+        for k, (state, (left, right)) in enumerate(zip(states, frames)):
             before = counter.ops + _launches()
-            outs.append(sweep.step(state, left, right, cfg)[1])
-            work[s // per_rank] += counter.ops + _launches() - before
+            outs.append(sweep.step_batch(state, left, right, cfg)[1])
+            work[k] += counter.ops + _launches() - before
         before = counter.ops + _launches()
         sweep._global_ok([o.depth_ok for o in outs], mesh)
         work[0] += counter.ops + _launches() - before

@@ -2,12 +2,17 @@
 
 One or more sequences per rank along the mesh's "seq" axis: S sequences on n
 ranks, sequences [k S/n, (k+1) S/n) on rank k, as ``shard_map`` splits the
-reference's batch axis. A batch of states is a list of per-sequence
-``OdometryState`` s, each on its rank's device. The port's ``step`` makes
-host reads inside its LM loops, so it cannot be ``vmap``-ped: each rank steps
-its own sequences in turn.
+reference's batch axis. Each rank holds its sequences as ONE batched
+``OdometryState`` (every tensor leading with its S/n sequences, on its
+device), as the reference's shard of its batched state, and steps them
+together with ``pipeline.odometry.step_batch``, the counterpart of the
+reference's ``jax.vmap(step)``: one stream of launches per rank and step,
+one SSD kernel launch per batched depth run, one host read per LM iteration
+for the whole batch. A batch of states is the list of the ranks' states;
+:func:`sequence_view` gives one sequence's view of it.
 
-Health is reduced as the reference's ``psum``: ``global_ok`` is True iff
+Health is reduced as the reference's ``psum``: each rank counts its healthy
+sequences, the counts are summed on rank 0, and ``global_ok`` is True iff
 every sequence on every rank had a healthy depth frame. When a
 ``torch.distributed`` process group is initialized
 (:func:`odometry_torch.distributed.scaling.initialize_multihost`), the
@@ -19,10 +24,10 @@ scaling harness to compile) has no counterpart: nothing is compiled here.
 
 ``COLLECTIVE_BYTES`` counts the bytes the health reduction moves, where it
 runs (``distributed/scaling.py:sweep_scaling_report`` reads it): 4 for
-each sequence's ok count taken to rank 0 from another rank, 8 for the
-reduced pair (the ok count and the number of sequences, as the reference's
-two int32 ``psum`` s), and 8 more for the ``all_reduce`` of that pair when a
-process group exists.
+each rank's ok count taken to rank 0 from another rank, 8 for the reduced
+pair (the ok count and the number of sequences, as the reference's two int32
+``psum`` s), and 8 more for the ``all_reduce`` of that pair when a process
+group exists.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import torch.distributed as dist
 
 from odometry_torch.config import PipelineConfig
 from odometry_torch.distributed.mesh import Mesh, sequence_mesh
-from odometry_torch.pipeline.odometry import init, step
+from odometry_torch.pipeline.odometry import init_batch, step_batch
+from odometry_torch.utils.batch import batch_size, lane
 
 
 def sequence_devices(num_seqs: int, mesh: Mesh) -> list:
@@ -54,40 +60,62 @@ COLLECTIVE_BYTES = 0
 
 
 def _global_ok(ok: list, mesh: Mesh) -> torch.Tensor:
-    """(sum of `ok` over sequences, in order, on rank 0's device) == number
-    of sequences, over the process group too when one is initialized."""
+    """`ok`: each rank's (b,) health flags, on its device. (Sum of each
+    rank's count, in rank order, on rank 0's device) == number of sequences,
+    over the process group too when one is initialized."""
     global COLLECTIVE_BYTES
-    devs = sequence_devices(len(ok), mesh)
-    per_rank = len(ok) // len(mesh.axis_devices("seq"))
-    total_ok = ok[0].to(torch.int32)
-    for o in ok[1:]:
-        total_ok = total_ok + o.to(devs[0], torch.int32)
-    counts = torch.stack([total_ok, torch.tensor(len(ok), dtype=torch.int32, device=devs[0])])
-    COLLECTIVE_BYTES += 4 * (len(ok) - per_rank) + counts.numel() * counts.element_size()
+    dev0 = mesh.axis_devices("seq")[0]
+    counts = [torch.sum(o, dtype=torch.int32) for o in ok]
+    total_ok = counts[0]
+    for c in counts[1:]:
+        total_ok = total_ok + c.to(dev0)
+    num = sum(o.numel() for o in ok)
+    pair = torch.stack([total_ok, torch.tensor(num, dtype=torch.int32, device=dev0)])
+    COLLECTIVE_BYTES += 4 * (len(ok) - 1) + pair.numel() * pair.element_size()
     if dist.is_available() and dist.is_initialized():
-        dist.all_reduce(counts, op=dist.ReduceOp.SUM)
-        COLLECTIVE_BYTES += counts.numel() * counts.element_size()
-    return counts[0] == counts[1]
+        dist.all_reduce(pair, op=dist.ReduceOp.SUM)
+        COLLECTIVE_BYTES += pair.numel() * pair.element_size()
+    return pair[0] == pair[1]
+
+
+def rank_frames(frames, mesh: Mesh) -> list:
+    """Frames of S sequences ((S, H, W), or S (H, W) arrays or tensors) ->
+    one (S/n, H, W) float32 tensor per rank, on its device."""
+    devs = sequence_devices(len(frames), mesh)
+    t = lambda a, d: torch.as_tensor(a, dtype=torch.float32).to(d)
+    per = len(frames) // mesh.shape["seq"]
+    return [torch.stack([t(a, devs[k]) for a in frames[k:k + per]])
+            for k in range(0, len(frames), per)]
+
+
+def sequence_view(per_rank: list, s: int):
+    """Sequence `s`'s unbatched view (tensors of lane s % b) of a sweep's
+    per-rank batched states or step outputs, b sequences per rank."""
+    per = batch_size(per_rank[0])
+    return lane(per_rank[s // per], s % per)
 
 
 def batched_init(left_b, right_b, cfg: PipelineConfig, mesh: Mesh) -> list:
     """Initialize a batch of sequences from their first frames (S, H, W) or
-    lists of (H, W), sequence s on its rank's device; returns the states."""
-    devs = sequence_devices(len(left_b), mesh)
-    return [init(left, right, cfg, device=d)[0] for left, right, d in zip(left_b, right_b, devs)]
+    lists of (H, W): one batched state per rank, on its device, from one
+    ``init_batch`` of its sequences."""
+    return [init_batch(left, right, cfg, device=left.device)[0]
+            for left, right in zip(rank_frames(left_b, mesh), rank_frames(right_b, mesh))]
 
 
 def batched_step(states: list, left_b, right_b, cfg: PipelineConfig, mesh: Mesh):
-    """One odometry step of every sequence; returns (states, outs, global_ok).
+    """One odometry step of every sequence; returns (states, outs,
+    global_ok), states and outs one batched state and ``StepOutput`` per
+    rank.
 
-    Each rank steps its own sequences in turn, their frames moved to its
-    device. global_ok: True iff every sequence's depth frame is healthy.
+    Each rank steps all of its sequences with one ``step_batch``, their
+    frames moved to its device. global_ok: True iff every sequence's depth
+    frame is healthy.
     """
-    devs = sequence_devices(len(states), mesh)
-    to_dev = lambda a, d: torch.as_tensor(a, dtype=torch.float32).to(d)
     new_states, outs = [], []
-    for state, left, right, d in zip(states, left_b, right_b, devs):
-        s, out = step(state, to_dev(left, d), to_dev(right, d), cfg)
+    for state, left, right in zip(states, rank_frames(left_b, mesh),
+                                  rank_frames(right_b, mesh)):
+        s, out = step_batch(state, left, right, cfg)
         new_states.append(s)
         outs.append(out)
     return new_states, outs, _global_ok([o.depth_ok for o in outs], mesh)
@@ -99,11 +127,13 @@ def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,
               ) -> np.ndarray:
     """Run every sequence of `frames_per_seq` (lists of (left, right) pairs
     of equal length) over `mesh`, by default ``sequence_mesh(S, device)``:
-    one sequence per rank, all on `device`.
+    one sequence per rank, all on `device`. ``sequence_mesh(1, device)``
+    steps all S as one batch.
 
     `progress(frame_id, states, outs, global_ok)` is called after init
     (frame 0, outs None, global_ok over the init depth) and after every
-    step. Returns the poses (num_seqs, num_frames, 4, 4).
+    step, with the per-rank lists (:func:`sequence_view` takes one
+    sequence's). Returns the poses (num_seqs, num_frames, 4, 4).
     """
     num_seqs = len(frames_per_seq)
     num_frames = len(frames_per_seq[0])
@@ -121,5 +151,5 @@ def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,
         poses.append([o.cur_pose for o in outs])
         if progress is not None:
             progress(i, states, outs, global_ok)
-    return np.stack([[p.cpu().numpy() for p in per_frame] for per_frame in poses], axis=1)
-
+    return np.stack([np.concatenate([p.cpu().numpy() for p in per_frame])
+                     for per_frame in poses], axis=1)

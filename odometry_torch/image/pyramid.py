@@ -11,6 +11,9 @@ layout and have no use here.
   floor(n/2) output.
 * Level 1 of the image pyramid is built from the UNsmoothed input
   (reference quirk, ``pyramid.py:143-145``).
+
+Every function takes (H, W) images or a batch (..., H, W); an image of a
+batch gets the bits of its own call (elementwise sums and slices only).
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ def _sep_conv(img: torch.Tensor, taps) -> torch.Tensor:
     """Separable 2D convolution with REFLECT_101 borders via shifted sums,
     accumulated in the reference's tap order."""
     r = len(taps) // 2
-    h, w = img.shape
-    p = F.pad(img[None, None], (r, r, r, r), mode="reflect")[0, 0]
-    horiz = torch.zeros((h + 2 * r, w), dtype=img.dtype, device=img.device)
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    p = F.pad(img.reshape(-1, 1, h, w), (r, r, r, r), mode="reflect")
+    p = p.reshape(*lead, h + 2 * r, w + 2 * r)
+    horiz = torch.zeros((*lead, h + 2 * r, w), dtype=img.dtype, device=img.device)
     for i, t in enumerate(taps):
-        horiz = horiz + t * p[:, i : i + w]
-    out = torch.zeros((h, w), dtype=img.dtype, device=img.device)
+        horiz = horiz + t * p[..., :, i : i + w]
+    out = torch.zeros((*lead, h, w), dtype=img.dtype, device=img.device)
     for i, t in enumerate(taps):
-        out = out + t * horiz[i : i + h, :]
+        out = out + t * horiz[..., i : i + h, :]
     return out
 
 
@@ -46,16 +50,18 @@ def gaussian_blur3(img: torch.Tensor) -> torch.Tensor:
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """cv::pyrDown with forced floor(n/2) output size."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     oh, ow = h // 2, w // 2
-    return _sep_conv(img, GAUSS5)[: 2 * oh : 2, : 2 * ow : 2]
+    return _sep_conv(img, GAUSS5)[..., : 2 * oh : 2, : 2 * ow : 2]
 
 
 def median_blur3(img: torch.Tensor) -> torch.Tensor:
     """3x3 median with REPLICATE borders (cv::medianBlur semantics)."""
-    h, w = img.shape
-    p = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    stack = torch.stack([p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)])
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    p = F.pad(img.reshape(-1, 1, h, w), (1, 1, 1, 1), mode="replicate")
+    p = p.reshape(*lead, h + 2, w + 2)
+    stack = torch.stack([p[..., dy : dy + h, dx : dx + w] for dy in range(3)
+                         for dx in range(3)])
     return torch.median(stack, dim=0).values
 
 
@@ -82,18 +88,18 @@ def depth_pyramid(dep: torch.Tensor, num_levels: int, smooth: bool = False,
     levels = [median_blur3(dep) if smooth else dep]
     for _ in range(1, num_levels):
         prev = levels[-1]
-        oh, ow = prev.shape[0] // 2, prev.shape[1] // 2
-        levels.append(prev[off : off + 2 * oh : 2, off : off + 2 * ow : 2])
+        oh, ow = prev.shape[-2] // 2, prev.shape[-1] // 2
+        levels.append(prev[..., off : off + 2 * oh : 2, off : off + 2 * ow : 2])
     return tuple(levels)
 
 
 def central_gradients(img: torch.Tensor):
     """Clamped central differences (``ComputePixelGradient``,
     ``image_processing_global.h:62-69``)."""
-    right = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
-    left = torch.cat([img[:, :1], img[:, :-1]], dim=1)
-    down = torch.cat([img[1:, :], img[-1:, :]], dim=0)
-    up = torch.cat([img[:1, :], img[:-1, :]], dim=0)
+    right = torch.cat([img[..., 1:], img[..., -1:]], dim=-1)
+    left = torch.cat([img[..., :1], img[..., :-1]], dim=-1)
+    down = torch.cat([img[..., 1:, :], img[..., -1:, :]], dim=-2)
+    up = torch.cat([img[..., :1, :], img[..., :-1, :]], dim=-2)
     return 0.5 * (right - left), 0.5 * (down - up)
 
 

@@ -1,4 +1,9 @@
-"""Image sampling at scattered coordinates (port of ``image/sampling.py``)."""
+"""Image sampling at scattered coordinates (port of ``image/sampling.py``).
+
+Images are (H, W), or a batch (B, H, W) whose coordinate tensors carry the
+same leading B: image b is sampled at coordinates [b]. The gathers are
+copies, so an image of a batch gets the bits of its own call.
+"""
 
 from __future__ import annotations
 
@@ -6,14 +11,16 @@ import torch
 
 
 def gather_2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-    """img[yi, xi] for in-bounds integer index tensors of any matching shape."""
-    w = img.shape[1]
-    idx = (yi.long() * w + xi.long()).reshape(-1)
-    return img.reshape(-1)[idx].reshape(yi.shape)
+    """img[..., yi, xi] for in-bounds integer index tensors of any matching
+    shape; with a batch of images (..., H, W) the indices lead with the same
+    batch dims."""
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    idx = (yi.long() * w + xi.long()).reshape(*lead, -1)
+    return torch.gather(img.reshape(*lead, h * w), -1, idx).reshape(yi.shape)
 
 
 def clip_gather_2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-    h, w = img.shape
+    h, w = img.shape[-2:]
     return gather_2d(img, torch.clamp(yi, 0, h - 1), torch.clamp(xi, 0, w - 1))
 
 
@@ -25,7 +32,7 @@ def sample_floor(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.T
 
 def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bilinear sample at continuous (u, v), edges clamped."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     u = torch.clamp(u, 0.0, w - 1.0)
     v = torch.clamp(v, 0.0, h - 1.0)
     x0 = torch.floor(u)
@@ -66,27 +73,28 @@ def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     nothing is rounded to bf16.
 
     Args:
-      imgs: (C, H, W) channel stack. u, v: (N,) continuous pixel coordinates.
+      imgs: (C, H, W) channel stack, or a batch (B, C, H, W). u, v: (N,)
+        continuous pixel coordinates, (B, N) for a batch.
     Returns:
-      (C, N) float32 samples.
+      (C, N) float32 samples, (B, C, N) for a batch.
     """
-    C, H, W = imgs.shape
+    lead, (C, H, W) = imgs.shape[:-3], imgs.shape[-3:]
     u = torch.clamp(u, 0.0, W - 1.0)
     v = torch.clamp(v, 0.0, H - 1.0)
     x0 = torch.floor(u)
     y0 = torch.floor(v)
     fx = (u - x0).to(dtype)
-    wx0 = (1 - fx).float()
-    wx1 = fx.float()
-    fy = v - y0
+    wx0 = (1 - fx).float()[..., None, :]
+    wx1 = fx.float()[..., None, :]
+    fy = (v - y0)[..., None, :]
     x0i = x0.long()
     y0i = y0.long()
     # Out-of-image taps carry weight 0 in the reference (the one-hot has no
     # column W / row H); clamping them keeps the gather in bounds.
     x1i = torch.clamp(x0i + 1, max=W - 1)
     y1i = torch.clamp(y0i + 1, max=H - 1)
-    q = imgs.to(dtype).float().reshape(C, H * W)
-    g = lambda yi, xi: q[:, yi * W + xi]
+    q = imgs.to(dtype).float().reshape(*lead, C, H * W)
+    g = lambda yi, xi: torch.gather(q, -1, (yi * W + xi)[..., None, :].expand(*lead, C, -1))
     top = g(y0i, x0i) * wx0 + g(y0i, x1i) * wx1
     bot = g(y1i, x0i) * wx0 + g(y1i, x1i) * wx1
     return top * (1.0 - fy) + bot * fy
@@ -95,7 +103,7 @@ def sample_channels_mm(imgs: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 def sample_bilinear_mm(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                        dtype=torch.bfloat16) -> torch.Tensor:
     """Single-channel :func:`sample_channels_mm`."""
-    return sample_channels_mm(img[None], u, v, dtype)[0]
+    return sample_channels_mm(img.unsqueeze(-3), u, v, dtype).squeeze(-2)
 
 
 def remap_bilinear(img: torch.Tensor, map_u: torch.Tensor, map_v: torch.Tensor) -> torch.Tensor:

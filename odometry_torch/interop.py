@@ -6,26 +6,25 @@ do ``BAProblem`` and ``KeyframeStore``. A reference value pulled to numpy
 leaves (``jax.tree_util.tree_map(np.asarray, x)``, done by the caller)
 converts to the port's type on a device, and back to numpy leaves in the
 port's own types. A batched reference state (the sweep's, with a leading
-sequence axis) becomes one port state per sequence, each on its rank's
-device.
+sequence axis) becomes one batched port state per rank of the mesh, its
+sequences' lanes on its device, as ``shard_map`` shards the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import types
 
 import numpy as np
 import torch
 
 from odometry_torch.device import resolve_device
 from odometry_torch.distributed.mesh import Mesh
-from odometry_torch.distributed.sweep import sequence_devices
 from odometry_torch.kernels.points import PointSet
 from odometry_torch.mapping.ba import BAProblem
 from odometry_torch.mapping.keyframe import KeyframeStore
 from odometry_torch.pipeline.odometry import OdometryState
 from odometry_torch.tracking.tracker import KeyframeLevel
+from odometry_torch.utils.batch import tree_map
 
 _DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.int32): torch.int32,
            np.dtype(np.bool_): torch.bool}
@@ -40,7 +39,8 @@ def _to_tensor(a, dev) -> torch.Tensor:
 
 
 def state_from_numpy(tree, device) -> OdometryState:
-    """Reference ``OdometryState`` with numpy leaves -> the port's state on `device`."""
+    """Reference ``OdometryState`` with numpy leaves -> the port's state on
+    `device` (a batched one stays batched)."""
     dev = resolve_device(device)
     t = lambda a: _to_tensor(a, dev)
     kf_track = tuple(
@@ -68,38 +68,24 @@ def state_to_numpy(state: OdometryState) -> OdometryState:
 
 def states_from_batched_numpy(tree, mesh: Mesh) -> list:
     """Reference batched ``OdometryState`` (numpy leaves with a leading
-    sequence axis) -> one port state per sequence, sequence s on its rank's
-    device of `mesh`'s "seq" axis."""
-    num_seqs = np.asarray(tree.frame_id).shape[0]
-    out = []
-    for s, dev in enumerate(sequence_devices(num_seqs, mesh)):
-        one = {f.name: getattr(tree, f.name) for f in dataclasses.fields(OdometryState)}
-        one = {k: (tuple(a[s] for a in v) if isinstance(v, (tuple, list)) else v[s])
-               for k, v in one.items() if k != "kf_track"}
-        one["kf_track"] = tuple(
-            types.SimpleNamespace(pts=tuple(a[s] for a in lvl.pts), intensity=lvl.intensity[s])
-            for lvl in tree.kf_track)
-        out.append(state_from_numpy(types.SimpleNamespace(**one), dev))
-    return out
+    sequence axis) -> one batched port state per rank of `mesh`'s "seq"
+    axis, sequences [k S/n, (k+1) S/n) on rank k's device."""
+    state = state_from_numpy(tree, "cpu")
+    devs = mesh.axis_devices("seq")
+    num_seqs = int(state.frame_id.shape[0])
+    if num_seqs % len(devs) != 0:
+        raise ValueError(f"{num_seqs} sequences not divisible by the {len(devs)} ranks of "
+                         "'seq'")
+    per = num_seqs // len(devs)
+    return [tree_map(lambda t: t[k * per:(k + 1) * per].to(d), state)
+            for k, d in enumerate(devs)]
 
 
 def states_to_batched_numpy(states: list) -> OdometryState:
-    """Port states of a sweep -> one state with numpy leaves stacked on a
-    leading sequence axis (the reference's batched layout)."""
-    per_seq = [state_to_numpy(s) for s in states]
-    stack = lambda *leaves: np.stack(leaves)
-    kf_track = tuple(
-        KeyframeLevel(PointSet(*map(stack, *(lv.pts for lv in lvls))),
-                      stack(*(lv.intensity for lv in lvls)))
-        for lvls in zip(*(s.kf_track for s in per_seq)))
-    fields = {}
-    for f in dataclasses.fields(OdometryState):
-        if f.name == "kf_track":
-            continue
-        vals = [getattr(s, f.name) for s in per_seq]
-        fields[f.name] = (tuple(map(stack, *vals)) if isinstance(vals[0], tuple)
-                          else stack(*vals))
-    return OdometryState(kf_track=kf_track, **fields)
+    """The per-rank batched states of a sweep -> one state with numpy leaves
+    on a leading sequence axis (the reference's batched layout)."""
+    return tree_map(lambda *leaves: np.concatenate(leaves),
+                    *(state_to_numpy(s) for s in states))
 
 
 def ba_problem_from_numpy(tree, device) -> BAProblem:

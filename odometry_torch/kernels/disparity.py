@@ -43,12 +43,13 @@ def _route(max_disparity: int | None) -> str:
 
 
 def pattern_stack(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) -> (8, H, W): the 8-point pattern value at each pixel, reading
-    zero-padded neighbours at the border."""
-    H, W = img.shape
+    """(..., H, W) -> (..., 8, H, W): the 8-point pattern value at each
+    pixel, reading zero-padded neighbours at the border."""
+    H, W = img.shape[-2:]
     padded = torch.nn.functional.pad(img, (2, 2, 2, 2))
     return torch.stack(
-        [padded[2 + dy : 2 + dy + H, 2 + dx : 2 + dx + W] for dy, dx in PATTERN_OFFSETS]
+        [padded[..., 2 + dy : 2 + dy + H, 2 + dx : 2 + dx + W] for dy, dx in PATTERN_OFFSETS],
+        dim=-3,
     )
 
 
@@ -63,7 +64,8 @@ def disparity_winner_maps(left: torch.Tensor, right: torch.Tensor, *, boundary: 
                           max_disparity: int | None = None,
                           min_disparity: int | None = None, lr_check: bool = False,
                           second_best: bool = False, second_excl: int = 2):
-    """(best, match, rmatch, second) dense winner maps of the blurred images.
+    """(best, match, rmatch, second) dense winner maps of the blurred images,
+    (H, W) or a batch (B, H, W) (one kernel launch for the batch).
 
     best[y, x] = lowest SSD for left pixel x over right columns xr with
     ``boundary <= xr`` and ``min_d <= x - xr <= max_d`` (1e10 where none);
@@ -86,14 +88,15 @@ def disparity_winner_maps(left: torch.Tensor, right: torch.Tensor, *, boundary: 
 
 def _finalize(left, best, match, rmatch, select_mask, *, fx, baseline, boundary,
               ssd_th, lr_check, lr_tol) -> DisparityResult:
-    """Winner thresholding + optional LR consistency + map assembly."""
-    H, W = left.shape
+    """Winner thresholding + optional LR consistency + map assembly, of
+    (H, W) maps or a batch (B, H, W)."""
+    H, W = left.shape[-2:]
     ys_f = torch.arange(H, device=left.device)[:, None].expand(H, W)
     xs_f = torch.arange(W, device=left.device)[None, :].expand(H, W)
     row_ok = (ys_f >= boundary) & (ys_f < H - boundary) & (xs_f < W - boundary)
     matched = select_mask & row_ok & (best <= ssd_th)
     if lr_check:
-        back = torch.gather(rmatch, 1, torch.clamp(match, 0, W - 1).long())
+        back = torch.gather(rmatch, -1, torch.clamp(match, 0, W - 1).long())
         matched = matched & (torch.abs(back - xs_f) <= lr_tol)
     disp = torch.where(matched, (xs_f - match).float(), 0.0)
     inv_depth = disp / float(fx * baseline)

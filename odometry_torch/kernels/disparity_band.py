@@ -11,7 +11,10 @@ use the plain version; on the card it serves only as the comparison.
 :func:`launch` launches either kernel (they share one C signature).
 
 Both return ``(best, match, rmatch, second)`` (see
-:func:`odometry_torch.kernels.disparity.disparity_winner_maps`). The two
+:func:`odometry_torch.kernels.disparity.disparity_winner_maps`), and both
+take one (H, W) pair or a batch (B, H, W) of pairs of one shape; the kernel
+takes the batch in one launch (``csrc/ssd_row.cuh``), the plain version one
+image at a time. The two
 compute the SSD differently (direct sum of squares vs norm expansion), so
 they may pick different winners where two candidates' SSDs are within the
 norm expansion's float32 rounding band.
@@ -55,8 +58,19 @@ def disparity_band_plain(left_s: torch.Tensor, right_s: torch.Tensor, *, boundar
 
     Per chunk of _ROW_CHUNK rows, one (W, 8) x (8, W) product per row scores every
     (x, xr) pair; masked pairs score 1e10; ``torch.argmin`` takes the first
-    index on ties, the strict-< scan rule of the reference.
+    index on ties, the strict-< scan rule of the reference. A batch (B, H, W)
+    is searched one image at a time, so each image's maps are its own call's.
     """
+    kw = dict(boundary=boundary, min_disparity=min_disparity, max_disparity=max_disparity,
+              lr=lr, second_best=second_best, second_excl=second_excl)
+    if left_s.dim() == 3:
+        per_image = [_plain_one(a, b, **kw) for a, b in zip(left_s, right_s)]
+        return tuple(torch.stack(maps) for maps in zip(*per_image))
+    return _plain_one(left_s, right_s, **kw)
+
+
+def _plain_one(left_s, right_s, *, boundary, min_disparity, max_disparity, lr, second_best,
+               second_excl):
     from odometry_torch.kernels.disparity import pattern_stack
 
     H, W = left_s.shape
@@ -94,17 +108,18 @@ def disparity_band_plain(left_s: torch.Tensor, right_s: torch.Tensor, *, boundar
 
 
 def check_images(name: str, left_s: torch.Tensor, right_s: torch.Tensor):
-    """Raise unless `left_s`/`right_s` are one (H, W) float32 contiguous pair
-    of CUDA tensors on one device: what the winner kernels take."""
+    """Raise unless `left_s`/`right_s` are one (H, W) or (B, H, W) float32
+    contiguous pair of CUDA tensors on one device: what the winner kernels
+    take."""
     if not (left_s.is_cuda and right_s.is_cuda):
         raise ValueError(f"{name}: inputs must be CUDA tensors")
     if left_s.device != right_s.device:
         raise ValueError(f"{name}: inputs on different devices")
     if left_s.dtype != torch.float32 or right_s.dtype != torch.float32:
         raise ValueError(f"{name}: inputs must be float32")
-    if left_s.dim() != 2 or left_s.shape != right_s.shape:
+    if left_s.dim() not in (2, 3) or left_s.shape != right_s.shape or left_s.numel() == 0:
         raise ValueError(f"{name}: shapes {tuple(left_s.shape)} / "
-                         f"{tuple(right_s.shape)} are not one (H, W)")
+                         f"{tuple(right_s.shape)} are not one (H, W) or (B, H, W)")
     if not (left_s.is_contiguous() and right_s.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
 
@@ -127,7 +142,9 @@ def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: 
            min_d: int, max_d: int, lr: bool, second_best: bool, second_excl: int,
            force_route: str | None = None):
     """Launch ``csrc/<name>.cu`` on the current stream (no synchronise) and
-    return ``((best, match, rmatch, second), launches)``.
+    return ``((best, match, rmatch, second), launches)``. A batch (B, H, W)
+    is one launch on the one-block route (TILED_LAUNCHES on the tiled), as
+    one image is.
 
     The band and the full-search kernels share these C signatures. The route
     is :func:`route`'s unless `force_route` forces one (the tiled route takes any
@@ -136,7 +153,9 @@ def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: 
     """
     from odometry_torch.kernels import _build
 
-    H, W = left_s.shape
+    shape = left_s.shape
+    H, W = shape[-2:]
+    batch = left_s.numel() // (H * W)
     chosen = route(W, lr) if force_route is None else force_route
     if chosen not in (ONE_BLOCK, TILED):
         raise ValueError(f"{name}: unknown route {chosen!r}")
@@ -148,14 +167,14 @@ def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: 
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_tiled_launch" if tiled else f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (7 if tiled else 6) + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * (7 if tiled else 6) + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
 
     dev = left_s.device
-    best = torch.empty((H, W), dtype=torch.float32, device=dev)
-    match = torch.empty((H, W), dtype=torch.int32, device=dev)
-    rmatch = torch.empty((H, W), dtype=torch.int32, device=dev) if lr else None
-    second = torch.empty((H, W), dtype=torch.float32, device=dev) if second_best else None
+    best = torch.empty(shape, dtype=torch.float32, device=dev)
+    match = torch.empty(shape, dtype=torch.int32, device=dev)
+    rmatch = torch.empty(shape, dtype=torch.int32, device=dev) if lr else None
+    second = torch.empty(shape, dtype=torch.float32, device=dev) if second_best else None
     ptr = lambda t: None if t is None else t.data_ptr()
     ptrs = [left_s.data_ptr(), right_s.data_ptr(), best.data_ptr(), match.data_ptr(),
             ptr(rmatch), ptr(second)]
@@ -163,11 +182,12 @@ def launch(name: str, left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: 
         # Per-row forward (and reverse) key buffers the tiles merge into. Freed
         # on return: the caching allocator hands the memory only to work queued
         # after the three launches on this stream.
-        keys = torch.empty((2 if lr else 1, H, W), dtype=torch.int64, device=dev)
+        keys = torch.empty((2 if lr else 1, batch, H, W), dtype=torch.int64, device=dev)
         ptrs.append(keys.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*ptrs, H, W, int(boundary), int(min_d), int(max_d), int(second_excl), stream)
+        rc = fn(*ptrs, batch, H, W, int(boundary), int(min_d), int(max_d), int(second_excl),
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed ({chosen} route): cudaError {rc}")
     if rmatch is None:
@@ -183,13 +203,15 @@ def disparity_band(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
                    force_route: str | None = None):
     """Launch the CUDA band kernel on the current stream (no synchronise).
 
-    `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images), of any width: rows too wide for one block take the tiled route
-    (:func:`route`; `force_route` forces one). Raises on anything the kernel does
-    not take, or if a launch is refused. Forward and reverse winners come
-    from one pass over the pairs, bit for bit those of a strict-< ascending
-    scan of each column, on either route. Adds each launch to ``LAUNCHES``
-    (1 per call on the one-block route, TILED_LAUNCHES on the tiled).
+    `left_s`/`right_s`: (H, W) or (B, H, W) float32 contiguous CUDA tensors
+    (the blurred images), of any width: rows too wide for one block take the
+    tiled route (:func:`route`; `force_route` forces one). Raises on anything
+    the kernel does not take, or if a launch is refused. Forward and reverse
+    winners come from one pass over the pairs, bit for bit those of a
+    strict-< ascending scan of each column, on either route; each image of a
+    batch gets the bits of its own call. Adds each launch to ``LAUNCHES`` (1
+    per call on the one-block route, TILED_LAUNCHES on the tiled, whatever B
+    is).
     """
     global LAUNCHES
     check_images("disparity_band", left_s, right_s)

@@ -35,18 +35,19 @@ def disparity_full(left_s: torch.Tensor, right_s: torch.Tensor, *, boundary: int
                    force_route: str | None = None):
     """Launch the CUDA full-search kernel on the current stream (no synchronise).
 
-    `left_s`/`right_s`: (H, W) float32 contiguous CUDA tensors (the blurred
-    images), of any width: rows too wide for one block take the tiled route
-    (:func:`odometry_torch.kernels.disparity_band.route`; `force_route` forces
-    one). Raises on anything the kernel does not take, or if a launch is
-    refused. Forward and reverse winners come from one pass over the pairs,
-    bit for bit those of a strict-< ascending scan of each column, on either
-    route. Adds each launch to ``LAUNCHES`` (1 per call on the one-block
-    route, TILED_LAUNCHES on the tiled).
+    `left_s`/`right_s`: (H, W) or (B, H, W) float32 contiguous CUDA tensors
+    (the blurred images), of any width: rows too wide for one block take the
+    tiled route (:func:`odometry_torch.kernels.disparity_band.route`;
+    `force_route` forces one). Raises on anything the kernel does not take,
+    or if a launch is refused. Forward and reverse winners come from one pass
+    over the pairs, bit for bit those of a strict-< ascending scan of each
+    column, on either route; each image of a batch gets the bits of its own
+    call. Adds each launch to ``LAUNCHES`` (1 per call on the one-block
+    route, TILED_LAUNCHES on the tiled, whatever B is).
     """
     global LAUNCHES
     check_images("disparity_full", left_s, right_s)
-    W = left_s.shape[1]
+    W = left_s.shape[-1]
     min_d = _min_d(min_disparity)
     max_d = W if max_disparity is None else int(max_disparity)
     if max_d < min_d:

@@ -12,6 +12,9 @@ Interp "floor" is the reference's nearest-via-floor lookup with gradients at
 the integer pixel, neighbours clamped (``lm_optimizer.cpp:208-217``);
 "bilinear" and "mm" both sample bilinearly here, as the reference's dense
 path does.
+
+A batch of keyframe/frame pairs (B, H, W) with poses (B, 4, 4) gives a
+system per pair, leading with B.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ def residual_jacobian(img_kf: torch.Tensor, inv_depth_kf: torch.Tensor, img_cur:
                       affine_ab: tuple | None = None) -> ResidualSystem:
     """Dense ``ComputeResidualJacobianNaive`` (lm_optimizer.cpp:190-237) at
     one level: `cam` holds this level's intrinsics, `T` maps keyframe-camera
-    points to the current camera, |inv_depth| < `min_inv_depth` is invalid."""
-    H, W = img_kf.shape
+    points to the current camera, |inv_depth| < `min_inv_depth` is invalid.
+    `affine_ab` is a pair of scalars, or of (B,) tensors for a batch."""
+    H, W = img_kf.shape[-2:]
     dev = img_kf.device
     ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
@@ -50,7 +54,8 @@ def residual_jacobian(img_kf: torch.Tensor, inv_depth_kf: torch.Tensor, img_cur:
     z = 1.0 / torch.where(depth_valid, d, torch.ones_like(d))
 
     X, Y, Z = backproject(cam, xs, ys, z)
-    u, v, _, warp_valid = warp_points(cam, T, X, Y, Z, H, W)
+    # T's entries broadcast over each image's pixels.
+    u, v, _, warp_valid = warp_points(cam, T[..., None, None, :, :], X, Y, Z, H, W)
     valid = depth_valid & border & warp_valid
 
     if interp == "floor":
@@ -71,7 +76,7 @@ def residual_jacobian(img_kf: torch.Tensor, inv_depth_kf: torch.Tensor, img_cur:
         raise ValueError(f"unknown interp mode {interp!r}")
 
     if affine_ab is not None:
-        a_fit, b_fit = affine_ab
+        a_fit, b_fit = (torch.as_tensor(x, device=dev)[..., None, None] for x in affine_ab)
         r = I2w - (a_fit * img_kf + b_fit)
     else:
         r = I2w - img_kf
@@ -101,6 +106,8 @@ def residual_jacobian(img_kf: torch.Tensor, inv_depth_kf: torch.Tensor, img_cur:
 
 
 class NormalEqs(NamedTuple):
+    """One pair's equations; a batch leads each with B."""
+
     JtWJ: torch.Tensor  # (6, 6)
     JtWr: torch.Tensor  # (6,)
     err: torch.Tensor  # scalar: (1/n) r^T W r  (lm_optimizer.cpp:129)
@@ -109,14 +116,16 @@ class NormalEqs(NamedTuple):
 
 def normal_equations(sys: ResidualSystem, weights: torch.Tensor) -> NormalEqs:
     """Reduce the dense system to 6x6 normal equations; `weights` (H, W) are
-    the robust weights (invalid lanes of r and J are already zero)."""
+    the robust weights (invalid lanes of r and J are already zero). A batch
+    (B, H, W) gives one system per pair."""
+    lead = sys.r.shape[:-2]
     w = weights * sys.valid.to(weights.dtype)
-    Jf = sys.J.reshape(-1, 6)
-    rf = sys.r.reshape(-1)
-    wf = w.reshape(-1)
-    Jw = Jf * wf[:, None]
-    JtWJ = Jw.T @ Jf
-    JtWr = Jw.T @ rf
-    num_valid = torch.sum(sys.valid)
-    err = torch.sum(wf * rf * rf) / torch.clamp(num_valid, min=1).to(rf.dtype)
+    Jf = sys.J.reshape(*lead, -1, 6)
+    rf = sys.r.reshape(*lead, -1)
+    wf = w.reshape(*lead, -1)
+    JwT = (Jf * wf[..., None]).transpose(-1, -2)
+    JtWJ = JwT @ Jf
+    JtWr = JwT @ rf if rf.dim() == 1 else (JwT @ rf[..., None])[..., 0]
+    num_valid = torch.sum(sys.valid.reshape(*lead, -1), dim=-1)
+    err = torch.sum(wf * rf * rf, dim=-1) / torch.clamp(num_valid, min=1).to(rf.dtype)
     return NormalEqs(JtWJ, JtWr, err, num_valid)

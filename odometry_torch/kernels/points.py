@@ -7,6 +7,12 @@ Tie order: ``lax.top_k`` returns the lower index first among equal keys.
 ``torch.topk`` promises no order, so the blocked extraction takes the first
 S entries of a stable descending ``torch.sort``, which keeps the lower index
 first as well.
+
+Every function takes one image's tensors or a batch of them with a leading
+axis B (images (B, H, W), point lists (B, cap), poses (B, 4, 4)), the
+counterpart of the reference's ``jax.vmap``. Extraction needs no host read:
+the first `capacity` set positions of each row of a (B, N) mask come from a
+per-row running count (:func:`_first_set`).
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ import torch
 from odometry_torch.camera.pinhole import Pinhole
 from odometry_torch.image.pyramid import central_gradients
 from odometry_torch.image.sampling import clip_gather_2d, sample_bilinear, sample_channels_mm
+from odometry_torch.utils.batch import lane
 
 
 class PointSet(NamedTuple):
-    """Sparse pixels with inverse depth; fixed capacity, mask-padded."""
+    """Sparse pixels with inverse depth; fixed capacity, mask-padded. A
+    batch carries a leading axis B on every field."""
 
     xs: torch.Tensor  # (cap,) float32 pixel x
     ys: torch.Tensor  # (cap,) float32 pixel y
@@ -31,10 +39,17 @@ class PointSet(NamedTuple):
     num: torch.Tensor  # scalar int32 = number of valid entries
 
 
-def _first_nonzero(flat_mask: torch.Tensor, capacity: int) -> torch.Tensor:
-    """``jnp.nonzero(flat_mask, size=capacity, fill_value=0)``."""
-    idx = torch.nonzero(flat_mask).reshape(-1)[:capacity]
-    return torch.cat([idx, idx.new_zeros(capacity - idx.numel())])
+def _first_set(mask: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Per row of a (B, N) mask, ``jnp.nonzero(row, size=capacity,
+    fill_value=0)``: the first `capacity` set positions in order, zeros
+    after them. A set position's running count is its slot; positions past
+    the capacity go to a spare column that is dropped."""
+    B, N = mask.shape
+    count = torch.cumsum(mask, dim=1, dtype=torch.int32)
+    slot = torch.where(mask & (count <= capacity), count - 1, capacity).long()
+    out = torch.zeros((B, capacity + 1), dtype=torch.int64, device=mask.device)
+    pos = torch.arange(N, device=mask.device).expand(B, N)
+    return out.scatter_(1, slot, pos)[:, :capacity]
 
 
 def extract_points(values: torch.Tensor, mask: torch.Tensor, capacity: int,
@@ -46,8 +61,13 @@ def extract_points(values: torch.Tensor, mask: torch.Tensor, capacity: int,
     is a spatially uniform subsample.
     order="blocked": per-tile slot budget; `priority` (blocked only) ranks
     pixels within a tile, highest first, else scan order.
+
+    (H, W) inputs give one PointSet; (B, H, W) inputs a batch of them.
     """
-    H, W = values.shape
+    if values.dim() == 2:
+        return lane(extract_points(values[None], mask[None], capacity, order,
+                                   None if priority is None else priority[None]), 0)
+    B, H, W = values.shape
     if order == "blocked":
         return _extract_points_blocked(values, mask, capacity, priority)
     if order == "spread":
@@ -57,30 +77,29 @@ def extract_points(values: torch.Tensor, mask: torch.Tensor, capacity: int,
 
         def perm(a):
             a = torch.nn.functional.pad(a, (0, Wp - W, 0, Hp - H))
-            return a.reshape(nby, t, nbx, t).permute(1, 3, 0, 2).reshape(-1)
+            return a.reshape(B, nby, t, nbx, t).permute(0, 2, 4, 1, 3).reshape(B, -1)
 
-        perm_m = perm(mask.to(torch.uint8)).bool()
-        perm_v = perm(values)
-        idx = _first_nonzero(perm_m, capacity)
-        count = torch.clamp(torch.sum(perm_m), max=capacity).to(torch.int32)
+        flat_mask = perm(mask.to(torch.uint8)).bool()
+        flat_vals = perm(values)
+        idx = _first_set(flat_mask, capacity)
         py = idx // (t * nby * nbx)
         r1 = idx % (t * nby * nbx)
         px = r1 // (nby * nbx)
         r2 = r1 % (nby * nbx)
         ys = ((r2 // nbx) * t + py).float()
         xs = ((r2 % nbx) * t + px).float()
-        vals = perm_v[idx]
     elif order == "row":
-        flat_mask = mask.reshape(-1)
-        idx = _first_nonzero(flat_mask, capacity)
-        count = torch.clamp(torch.sum(flat_mask), max=capacity).to(torch.int32)
+        flat_mask = mask.reshape(B, -1)
+        flat_vals = values.reshape(B, -1)
+        idx = _first_set(flat_mask, capacity)
         ys = (idx // W).float()
         xs = (idx % W).float()
-        vals = values.reshape(-1)[idx]
     else:
         raise ValueError(f"unknown extraction order {order!r}")
-    lane = torch.arange(capacity, device=values.device)
-    return PointSet(xs, ys, vals, lane < count, count)
+    count = torch.clamp(torch.sum(flat_mask, dim=1), max=capacity).to(torch.int32)
+    vals = torch.gather(flat_vals, 1, idx)
+    slots = torch.arange(capacity, device=values.device)
+    return PointSet(xs, ys, vals, slots < count[:, None], count)
 
 
 def _blocked_grid(H: int, W: int, capacity: int, slots: int = 16):
@@ -109,41 +128,42 @@ def _blocked_grid(H: int, W: int, capacity: int, slots: int = 16):
 
 
 def _extract_points_blocked(values, mask, capacity, priority=None) -> PointSet:
-    """Per-tile top-S extraction (see extract_points)."""
-    H, W = values.shape
+    """Per-tile top-S extraction of a batch (B, H, W) (see extract_points)."""
+    Bn, H, W = values.shape
     grid = _blocked_grid(H, W, capacity)
     if grid is None:
         return extract_points(values, mask, capacity, order="spread")
     S, nby, nbx, th, tw = grid
-    B = nby * nbx
+    T = nby * nbx
     Hp, Wp = nby * th, nbx * tw
     dev = values.device
 
     def relayout(a):
         a = torch.nn.functional.pad(a, (0, Wp - W, 0, Hp - H))
-        return a.reshape(nby, th, nbx, tw).permute(0, 2, 1, 3).reshape(B, th * tw)
+        return a.reshape(Bn, nby, th, nbx, tw).permute(0, 1, 3, 2, 4).reshape(Bn, T, th * tw)
 
     mb = relayout(mask.to(torch.uint8)).bool()
     vb = relayout(values)
     if priority is None:
-        lane = torch.arange(th * tw, dtype=torch.int32, device=dev).expand(B, th * tw)
-        prio = torch.where(mb, -lane, torch.full_like(lane, -(2**30)))
-        top, idx = torch.sort(prio, dim=1, descending=True, stable=True)
-        valid = top[:, :S] > -(2**30)
+        scan = torch.arange(th * tw, dtype=torch.int32, device=dev).expand(Bn, T, th * tw)
+        prio = torch.where(mb, -scan, torch.full_like(scan, -(2**30)))
+        top, idx = torch.sort(prio, dim=-1, descending=True, stable=True)
+        valid = top[..., :S] > -(2**30)
     else:
         neg = torch.tensor(-3e38, dtype=torch.float32, device=dev)
         prio = torch.where(mb, relayout(priority).float(), neg)
-        top, idx = torch.sort(prio, dim=1, descending=True, stable=True)
-        valid = top[:, :S] > neg
-    idx = idx[:, :S]
-    vals = torch.gather(vb, 1, idx)
-    t = torch.arange(B, device=dev)[:, None]
+        top, idx = torch.sort(prio, dim=-1, descending=True, stable=True)
+        valid = top[..., :S] > neg
+    idx = idx[..., :S]
+    vals = torch.gather(vb, -1, idx)
+    t = torch.arange(T, device=dev)[:, None]
     ys = (t // nbx) * th + idx // tw
     xs = (t % nbx) * tw + idx % tw
-    valid = (valid & (ys < H) & (xs < W)).reshape(-1)
-    vals = torch.where(valid, vals.reshape(-1), torch.zeros((), dtype=vals.dtype, device=dev))
-    return PointSet(xs.reshape(-1).float(), ys.reshape(-1).float(), vals, valid,
-                    torch.sum(valid).to(torch.int32))
+    valid = (valid & (ys < H) & (xs < W)).reshape(Bn, -1)
+    vals = torch.where(valid, vals.reshape(Bn, -1),
+                       torch.zeros((), dtype=vals.dtype, device=dev))
+    return PointSet(xs.reshape(Bn, -1).float(), ys.reshape(Bn, -1).float(), vals, valid,
+                    torch.sum(valid, dim=1).to(torch.int32))
 
 
 def depth_point_pyramid(dpyr, boundary: int, min_inv_depth: float, capacity: int,
@@ -153,7 +173,7 @@ def depth_point_pyramid(dpyr, boundary: int, min_inv_depth: float, capacity: int
     capacity shrinks 4x per level."""
     out = []
     for l, dep in enumerate(dpyr):
-        H, W = dep.shape
+        H, W = dep.shape[-2:]
         ys = torch.arange(H, device=dep.device)[:, None]
         xs = torch.arange(W, device=dep.device)[None, :]
         border = (ys >= boundary) & (ys < H - boundary) & (xs >= boundary) & (xs < W - boundary)
@@ -164,7 +184,7 @@ def depth_point_pyramid(dpyr, boundary: int, min_inv_depth: float, capacity: int
 
 
 class PointSystem(NamedTuple):
-    r: torch.Tensor  # (cap,)
+    r: torch.Tensor  # (cap,) ((B, cap) for a batch)
     J: torch.Tensor  # (cap, 6)
     valid: torch.Tensor  # (cap,) bool
 
@@ -178,20 +198,21 @@ def residual_jacobian_points(pts: PointSet, img_cur: torch.Tensor, cam: Pinhole,
     `grads` = (gx, gy) central-difference images of `img_cur` (floor:
     sampled at the warp's integer pixel; bilinear: at the nearest pixel).
     interp="mm" samples the (3, H, W) stack `chan` = [img, gx, gy] with the
-    mm sampler's semantics (gradients interpolated bilinearly).
+    mm sampler's semantics (gradients interpolated bilinearly). A batch:
+    points (B, cap), images (B, H, W), `chan` (B, 3, H, W), `T` (B, 4, 4).
     """
-    H, W = img_cur.shape
+    H, W = img_cur.shape[-2:]
     d = pts.inv_depth
     safe_d = torch.where(torch.abs(d) < 1e-12, torch.ones_like(d), d)
     Z0 = 1.0 / safe_d
     X = Z0 * (pts.xs - cam.cx) / cam.fx
     Y = Z0 * (pts.ys - cam.cy) / cam.fy
 
-    R = T[:3, :3]
-    t = T[:3, 3]
-    Xw = R[0, 0] * X + R[0, 1] * Y + R[0, 2] * Z0 + t[0]
-    Yw = R[1, 0] * X + R[1, 1] * Y + R[1, 2] * Z0 + t[1]
-    Zw = R[2, 0] * X + R[2, 1] * Y + R[2, 2] * Z0 + t[2]
+    # T's entries broadcast over each image's points.
+    M = T[..., None]
+    Xw = M[..., 0, 0, :] * X + M[..., 0, 1, :] * Y + M[..., 0, 2, :] * Z0 + M[..., 0, 3, :]
+    Yw = M[..., 1, 0, :] * X + M[..., 1, 1, :] * Y + M[..., 1, 2, :] * Z0 + M[..., 1, 3, :]
+    Zw = M[..., 2, 0, :] * X + M[..., 2, 1, :] * Y + M[..., 2, 2, :] * Z0 + M[..., 2, 3, :]
     safe_Zw = torch.where(Zw == 0, torch.ones_like(Zw), Zw)
     u = cam.fx * Xw / safe_Zw + cam.cx
     v = cam.fy * Yw / safe_Zw + cam.cy
@@ -214,8 +235,8 @@ def residual_jacobian_points(pts: PointSet, img_cur: torch.Tensor, cam: Pinhole,
     elif interp == "mm":
         if chan is None:
             g = grads if grads is not None else central_gradients(img_cur)
-            chan = torch.stack([img_cur, g[0], g[1]])
-        I2w, gx, gy = sample_channels_mm(chan, u, v)
+            chan = torch.stack([img_cur, g[0], g[1]], dim=-3)
+        I2w, gx, gy = sample_channels_mm(chan, u, v).unbind(-2)
     elif interp == "bilinear":
         I2w = sample_bilinear(img_cur, u, v)
         if grads is not None:
@@ -251,21 +272,22 @@ def residual_jacobian_points(pts: PointSet, img_cur: torch.Tensor, cam: Pinhole,
         dim=-1,
     )
     vf32 = valid.to(r.dtype)
-    return PointSystem(r * vf32, J * vf32[:, None], valid)
+    return PointSystem(r * vf32, J * vf32[..., None], valid)
 
 
 def fit_affine_ab(r0: torch.Tensor, kf_intensity: torch.Tensor, valid: torch.Tensor,
                   a_dead: float = 0.0, b_dead: float = 0.0):
     """Closed-form brightness-affine fit (a, b) minimizing
     ``sum_valid (I2w - a*I1 - b)^2`` from the raw residual ``r0 = I2w - I1``;
-    clamped to a plausible photometric envelope."""
+    clamped to a plausible photometric envelope. (N,) lanes give scalars,
+    a batch (B, N) one (a, b) per image, shaped (B,)."""
     vf = valid.to(r0.dtype)
-    n = torch.clamp(torch.sum(vf), min=1.0)
+    n = torch.clamp(torch.sum(vf, dim=-1), min=1.0)
     i2 = r0 + vf * kf_intensity
-    s1 = torch.sum(vf * kf_intensity)
-    s2 = torch.sum(vf * kf_intensity * kf_intensity)
-    t0 = torch.sum(i2)
-    t1 = torch.sum(i2 * kf_intensity)
+    s1 = torch.sum(vf * kf_intensity, dim=-1)
+    s2 = torch.sum(vf * kf_intensity * kf_intensity, dim=-1)
+    t0 = torch.sum(i2, dim=-1)
+    t1 = torch.sum(i2 * kf_intensity, dim=-1)
     det = s2 * n - s1 * s1
     ok_fit = det > 1e-6 * torch.clamp(s2 * n, min=1.0)
     one = torch.ones_like(det)
@@ -290,10 +312,12 @@ class PointNormalEqs(NamedTuple):
 
 
 def normal_equations_points(sys: PointSystem, weights: torch.Tensor) -> PointNormalEqs:
+    """6x6 normal equations of (cap,) lanes, or of each image of a batch
+    (B, cap): J^T W J and J^T W r, one product each for the batch."""
     w = weights * sys.valid.to(weights.dtype)
-    Jw = sys.J * w[:, None]
-    JtWJ = Jw.T @ sys.J
-    JtWr = Jw.T @ sys.r
-    num_valid = torch.sum(sys.valid)
-    err = torch.sum(w * sys.r * sys.r) / torch.clamp(num_valid, min=1).to(sys.r.dtype)
+    JwT = (sys.J * w[..., None]).transpose(-1, -2)
+    JtWJ = JwT @ sys.J
+    JtWr = JwT @ sys.r if sys.r.dim() == 1 else (JwT @ sys.r[..., None])[..., 0]
+    num_valid = torch.sum(sys.valid, dim=-1)
+    err = torch.sum(w * sys.r * sys.r, dim=-1) / torch.clamp(num_valid, min=1).to(sys.r.dtype)
     return PointNormalEqs(JtWJ, JtWr, err, num_valid)

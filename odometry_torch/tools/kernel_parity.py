@@ -26,7 +26,12 @@ Cases (``--case``):
   of 128), and B2 on the band [12, 192] bit for bit against B1;
 * ``tiled``: rows too wide for one block (ROADMAP C10) bit for bit against
   the plain version at 8x6000, and the tiled route forced at 376x1241 bit
-  for bit against the one-block route.
+  for bit against the one-block route;
+* ``batched``: B1 and B2 on a batch of images in one launch (the sweep's
+  batched depth run), bit for bit on all four maps against one launch per
+  image: (3, 376, 1241) tie images and seeded frames on the one-block route,
+  (2, 8, 6000) tie images on the tiled route and the tiled route forced at
+  (3, 376, 1241), one launch per batched call (three on the tiled route).
 
 Usage (on a machine with a CUDA card; there is no interpreter to fall back
 to, so without one it refuses)::
@@ -98,6 +103,17 @@ WIDE_CASES = (("band", MIN_D, 192), ("full", None, None), ("full", MIN_D, W_KITT
 # The tiled route forced at KITTI size against the one-block route, bit for
 # bit on all four maps: (kernel, max_disparity), lr and second_best on.
 FORCED_TILED_CASES = (("band", 192), ("full", None))
+# A batch in one launch against one launch per image: (kernel, shape, images,
+# max_disparity, forced route or None). "ties" are tie_stereo_pair images,
+# "frames" seeded blurred frames (stereo()).
+BATCH_CASES = (("band", (3, 376, 1241), "ties", 192, None),
+               ("band", (3, 376, 1241), "frames", 192, None),
+               ("full", (3, 376, 1241), "ties", None, None),
+               ("full", (3, 376, 1241), "frames", None, None),
+               ("band", (2, 8, 6000), "ties", 192, None),
+               ("full", (2, 8, 6000), "ties", None, None),
+               ("band", (3, 376, 1241), "frames", 192, "tiled"),
+               ("full", (3, 376, 1241), "frames", None, "tiled"))
 # Parity budgets. A winner may differ only at a near-tie (see the module
 # docstring); flips at most these shares of the matched (selected) or
 # interior (dense) pixels.
@@ -321,6 +337,44 @@ def _forced_tiled_case(kernel, max_d, results):
                     f"{_band_label(MIN_D, max_d)}", kernel, one, tiled)
 
 
+def batch_images(shape, images):
+    """(B, H, W) blurred left and right images on the card: tie_stereo_pair
+    images ("ties") or seeded frames of stereo() ("frames"), image b from
+    seed b."""
+    B, H, W = shape
+    if images == "ties":
+        pairs = [tuple(torch.from_numpy(a).cuda() for a in tie_stereo_pair(H, W, seed=H + W + b))
+                 for b in range(B)]
+    else:
+        pairs = [stereo(H, W, b) for b in range(B)]
+    return (torch.stack([p[0] for p in pairs]).contiguous(),
+            torch.stack([p[1] for p in pairs]).contiguous())
+
+
+def _batch_case(kernel, shape, images, max_d, force, results):
+    """A batch in one call against one call per image, bit for bit on all
+    four maps, and the calls' launches: one per call (TILED_LAUNCHES on the
+    tiled route) whatever the batch."""
+    ls, rs = batch_images(shape, images)
+    fn, _ = KERNELS[kernel]
+    counter = disparity_band if kernel == "band" else disparity_full
+    kw = dict(boundary=4, min_disparity=MIN_D, max_disparity=max_d, lr=True, second_best=True,
+              force_route=force)
+    route = force or disparity_band.route(shape[-1], True)
+    per_call = disparity_band.TILED_LAUNCHES if route == disparity_band.TILED else 1
+    before = counter.LAUNCHES
+    batched = fn(ls, rs, **kw)
+    launched = counter.LAUNCHES - before
+    single = [fn(a, b, **kw) for a, b in zip(ls, rs)]
+    torch.cuda.synchronize()
+    want = tuple(torch.stack(maps) for maps in zip(*single))
+    B, H, W = shape
+    return _bitwise(results, f"{kernel} batch {B}x{H}x{W} {images} "
+                    f"{_band_label(MIN_D, max_d)} ({route} route) vs {B} single calls, "
+                    f"{launched} launches", kernel, batched, want,
+                    extra_ok=launched == per_call)
+
+
 def case_band(results, sizes=((48, 256, 64, 0), (64, 384, 192, 0),
                               (376, 1241, 192, 0), (376, 1241, 192, 2),
                               (376, 1241, 192, 5))):
@@ -395,9 +449,17 @@ def case_tiled(results):
     return ok
 
 
+def case_batched(results):
+    """A batch of images in one launch against one launch per image."""
+    ok = True
+    for case in BATCH_CASES:
+        ok &= _batch_case(*case, results)
+    return ok
+
+
 CASES = {"band": case_band, "full": case_full, "dense": case_dense,
          "selected": case_selected, "winner_maps": case_winner_maps, "ties": case_ties,
-         "tiled": case_tiled}
+         "tiled": case_tiled, "batched": case_batched}
 
 
 def run(cases=None, log=None) -> list[Result]:

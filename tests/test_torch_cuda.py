@@ -30,6 +30,7 @@ from odometry_torch.kernels.points import extract_points
 from odometry_torch.kernels.select import select_points
 from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
 from odometry_torch.pipeline.runner import run_sequence
+from odometry_torch.tools import kernel_parity
 
 pytestmark = pytest.mark.cuda
 
@@ -246,6 +247,49 @@ def test_tiled_route_equals_one_block_route_at_kitti_size(card, kernel, tie):
     tiled = fn(ls, rs, force_route=disparity_band.TILED, **kw)
     for a, b in zip(one, tiled):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel,shape,images,max_d,force", kernel_parity.BATCH_CASES)
+def test_batch_in_one_launch_equals_single_launches(card, kernel, shape, images, max_d, force):
+    """B1 and B2 on (B, H, W) (the sweep's batched depth run): one call (one
+    launch, three on the tiled route) gives each image the bits of its own
+    call, on all four maps."""
+    B, H, W = shape
+    ls, rs = kernel_parity.batch_images(shape, images)
+    mod = disparity_band if kernel == "band" else disparity_full
+    fn = mod.disparity_band if kernel == "band" else mod.disparity_full
+    kw = dict(boundary=4, min_disparity=12, max_disparity=max_d, lr=True, second_best=True,
+              force_route=force)
+    tiled = (force or disparity_band.route(W, True)) == disparity_band.TILED
+    before = mod.LAUNCHES
+    got = fn(ls, rs, **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + (disparity_band.TILED_LAUNCHES if tiled else 1)
+    for b in range(B):
+        for a, e in zip(got, fn(ls[b], rs[b], **kw)):
+            assert torch.equal(a[b], e)
+
+
+def test_batched_sweep_on_the_card_follows_run_sequence(card):
+    """Three sequences as one batch on one rank of the card: each sequence's
+    keyframes are run_sequence's and its poses within the "mm" tracker's
+    tolerance; one B1 launch per batched depth run."""
+    from odometry_torch.distributed.sweep import run_sweep
+
+    cam = Pinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
+    scene = make_scene(3, depth=14.0, device="cpu")
+    seqs = [[tuple(a.numpy() for a in render_stereo(scene, cam, 0.537, T, HS, WS)[:2])
+             for T in drive_trajectory(9, step=0.35, seed=seed)] for seed in (4, 5, 11)]
+    singles = [run_sequence(frames, CFG, device=card) for frames in seqs]
+    runs = []
+    before = disparity_band.LAUNCHES
+    poses = run_sweep(seqs, CFG, sequence_mesh(1, card),
+                      progress=lambda i, st, outs, ok: runs.append(
+                          outs is None or bool(((outs[0].summary[:, 37] > 0)
+                                                | (outs[0].summary[:, 34] < 0.5)).any())))
+    assert disparity_band.LAUNCHES - before == sum(runs)
+    for s, single in enumerate(singles):
+        np.testing.assert_allclose(poses[s][:, :3, 3], single.poses[:, :3, 3], rtol=0, atol=0.05)
 
 
 def test_compute_depth_cuda_matches_cpu(card):

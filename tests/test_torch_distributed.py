@@ -155,28 +155,31 @@ def test_sweep_matches_reference(sequences, reference_sweep):
     for i, (ref_pose, ref_ok, ref_global) in enumerate(ref_steps, start=1):
         states, outs, global_ok = tsw.batched_step(states, _frame_stack(sequences, i, 0),
                                                    _frame_stack(sequences, i, 1), CFG_T, mesh)
-        pose = torch.stack([o.cur_pose for o in outs]).numpy()
+        pose = torch.cat([o.cur_pose for o in outs]).numpy()
         np.testing.assert_allclose(pose, ref_pose, rtol=0, atol=POSE_ATOL)
-        np.testing.assert_array_equal([bool(o.depth_ok) for o in outs], ref_ok)
+        np.testing.assert_array_equal(torch.cat([o.depth_ok for o in outs]).numpy(), ref_ok)
         assert bool(global_ok) == ref_global
         assert global_ok.dtype == torch.bool and global_ok.dim() == 0
-    # Every state tensor sits on its rank's device.
-    for state, dev in zip(states, tsw.sequence_devices(NUM_SEQS, mesh)):
-        assert all(t.device == dev for t in _leaves(state))
+    # One batched state per rank, every tensor on its rank's device.
+    assert len(states) == NUM_SEQS
+    for state, dev in zip(states, mesh.axis_devices("seq")):
+        assert all(t.device == dev and t.shape[0] == 1 for t in _leaves(state))
 
 
 def test_sweep_health_counts_every_sequence(sequences):
     """One sequence whose step frame is flat (no depth survivors) makes
-    global_ok False; two sequences per rank on a 2-rank mesh."""
+    global_ok False; two sequences per rank on a 2-rank mesh, each rank's
+    two stepped as one batch."""
     mesh = sequence_mesh(2, device="cpu")
     states = tsw.batched_init(_frame_stack(sequences, 0, 0), _frame_stack(sequences, 0, 1),
                               CFG_T, mesh)
     lefts, rights = _frame_stack(sequences, 1, 0), _frame_stack(sequences, 1, 1)
     _, outs, ok = tsw.batched_step(states, lefts, rights, CFG_T, mesh)
-    assert bool(ok) and all(bool(o.depth_ok) for o in outs)
+    assert [o.depth_ok.shape for o in outs] == [(2,), (2,)]
+    assert bool(ok) and all(bool(o.depth_ok.all()) for o in outs)
     lefts[3] = rights[3] = 0.0
     _, outs, ok = tsw.batched_step(states, lefts, rights, CFG_T, mesh)
-    assert [bool(o.depth_ok) for o in outs] == [True, True, True, False]
+    assert torch.cat([o.depth_ok for o in outs]).tolist() == [True, True, True, False]
     assert not bool(ok)
     with pytest.raises(ValueError, match="not divisible"):
         tsw.batched_init(lefts[:3], rights[:3], CFG_T, mesh)
@@ -195,19 +198,19 @@ def test_run_sweep_equals_run_sequence(sequences):
 
 
 def test_batched_state_interop(sequences, reference_sweep):
-    """The reference's batched state carried to one port state per
-    sequence: it round-trips, and one port step from it follows the
-    reference's step."""
+    """The reference's batched state carried to one batched port state per
+    rank: it round-trips, and one port step from it follows the reference's
+    step."""
     init_tree, ref_steps = reference_sweep
     mesh = sequence_mesh(2, device="cpu")
     states = interop.states_from_batched_numpy(init_tree, mesh)
-    assert len(states) == NUM_SEQS
+    assert len(states) == 2 and all(int(s.frame_id.shape[0]) == 2 for s in states)
     back = interop.states_to_batched_numpy(states)
     for a, b in zip(jax.tree_util.tree_leaves(init_tree), _leaves(back)):
         np.testing.assert_array_equal(a, b)
     _, outs, ok = tsw.batched_step(states, _frame_stack(sequences, 1, 0),
                                    _frame_stack(sequences, 1, 1), CFG_T, mesh)
-    np.testing.assert_allclose(torch.stack([o.cur_pose for o in outs]).numpy(), ref_steps[0][0],
+    np.testing.assert_allclose(torch.cat([o.cur_pose for o in outs]).numpy(), ref_steps[0][0],
                                rtol=0, atol=POSE_ATOL)
     assert bool(ok) == ref_steps[0][2]
 

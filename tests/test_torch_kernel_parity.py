@@ -39,8 +39,9 @@ def test_cases_keep_every_check_of_the_smoke_script():
     assert len(kp.WIDE_CASES) == 3 and len(kp.FORCED_TILED_CASES) == 2
     assert (kp.TIE_ABS, kp.TIE_REL) == (0.5, 8 * 2.0**-24)
     assert (kp.MAX_FLIP_FRACTION_SELECTED, kp.MAX_FLIP_FRACTION_DENSE) == (0.005, 0.01)
+    assert len(kp.BATCH_CASES) == 8
     assert set(kp.CASES) == {"band", "full", "dense", "selected", "winner_maps", "ties",
-                             "tiled"}
+                             "tiled", "batched"}
 
 
 def test_flips_are_ties_tells_ties_from_flips():

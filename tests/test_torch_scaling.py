@@ -68,10 +68,10 @@ def test_timed_rows_on_the_cpu():
 def test_collective_bytes_counted_where_the_reduction_runs():
     before = sweep.COLLECTIVE_BYTES
     mesh = sweep.sequence_mesh(2, "cpu")
-    ok = [torch.tensor(True), torch.tensor(True), torch.tensor(False), torch.tensor(True)]
+    ok = [torch.tensor([True, True]), torch.tensor([False, True])]
     assert not bool(sweep._global_ok(ok, mesh))
-    # Two of the four sequences sit on rank 1: 2 x 4 B, plus the 8 B pair.
-    assert sweep.COLLECTIVE_BYTES - before == 16
+    # Rank 1 counts its two sequences and sends the count: 4 B, plus the 8 B pair.
+    assert sweep.COLLECTIVE_BYTES - before == 12
 
 
 def test_format_scaling_table_is_the_reference_layout(rows):
