@@ -28,10 +28,12 @@ prints no result line):
    the host's enqueue); and B1 and B2 on a batch of 3 frames in one call
    beside 3 single calls and the bound for the batch;
 5. the fast_config odometry path end to end at 376x1241 (the workload of
-   ``bench.py``): 3 trajectory seeds x 49 frames rendered on the card with
-   the texture phase rounded as bench.py's TPU rounded it (``tpu_phase_scene``),
-   the median mean-translation-error gate of ``bench.py`` (< 0.15), B1's
-   launch count against the number of depth runs, and no launch of B2;
+   ``bench.py``, through ``odometry_torch/tools/bench.py``): 3 trajectory
+   seeds x 49 frames rendered on the card with the texture phase rounded as
+   bench.py's TPU rounded it (``tpu_phase_scene``), the median
+   mean-translation-error gate of ``bench.py`` (< 0.15), B1's launch count
+   against the number of depth runs, and no launch of B2; then bench.py's
+   timed loop on seed 4's frames and its JSON line, B1 once per depth run;
 6. accurate_config end to end at 376x1241 on the driving family of
    ``tools/accuracy_sweep.py`` (3 seeds x 49 frames): the same gate, B2's
    launches against the depth runs (every frame), no launch of B1;
@@ -66,12 +68,13 @@ prints no result line):
     and 1e-4 (inverse depths), free depths on cost and finiteness (ROADMAP
     C9);
 12. ``run_slam`` at 376x1241 on the loop fixture of
-    ``tools/verify_loop_closure_tpu.py`` (fast_config with
+    ``odometry_torch/tools/verify_loop_closure.py`` (fast_config with
     ``motion_threshold=0.4``, ``make_driving_scene(3, side_x=20, wall_z=26)``,
     49 frames out and back in steps of 0.35 m), odometry only and with BA
-    every 2 keyframes and loop closure: no depth failure, at least one
-    closure, a SLAM endpoint error below 0.2 m and no larger than the
-    odometry's, B1 launched once per depth run and B2 and B3 never;
+    every 2 keyframes and loop closure: the tool's JSON line, its gates (no
+    depth failure, at least one closure, a SLAM endpoint error below 0.2 m
+    and no larger than the odometry's) and ``OK``, B1 launched once per depth
+    run and B2 and B3 never;
 13. the command line, ``odometry_torch.cli.main`` with ``--device cuda``, on
     directories written with ``data/png.py`` from the driving family (seed 4,
     25 frames at 376x1241, 8-bit): ``run-kitti --config accurate`` with its
@@ -96,7 +99,16 @@ prints no result line):
     efficiency >= 80%, 0 < collective bytes < 4096); (c) ``tools/profile_step``
     on accurate_config with a device trace of 10 steps into ``$TMPDIR``
     (``trace_summary`` printed; gated on device time, launches and B2 in the
-    trace).
+    trace);
+15. the reference's diagnostic tools through ``odometry_torch/tools/``, each
+    cut: ``capacity_knee`` on one row of each sweep (cap 2048, max_residuals
+    32768) on phase 5's seed-4 frames, ``diag_divergence`` on fast/plane and
+    accurate/driving seed 4, ``diag_basin`` on seed 11 with 2 variants,
+    ``diag_depth`` on plane/fast and driving/accurate seed 4,
+    ``diag_depth_decomp`` on one seed, ``diag_depth_filters`` on 2 variants
+    and ``bisect_fast_robustness`` on 1 variant x 2 cases; each gated on
+    finite output and on its launches (B1 once per depth run and B2 never on
+    fast_config, B2 once per depth run and B1 never on accurate_config).
 
 Phase 3's harness also holds the tiled route of B1 and B2 (rows too wide
 for one block's shared memory, ROADMAP C10) bit for bit against the plain
@@ -128,12 +140,11 @@ from odometry_torch import cli, interop
 from odometry_torch.camera.pinhole import Pinhole
 from odometry_torch.config import accurate_config, fast_config, kitti_config, tum_rgbd_config
 from odometry_torch.data import kitti, png, tum
-from odometry_torch.data.synthetic import (
-    PlaneScene,
+from odometry_torch.data.synthetic import (  # noqa: F401 (tpu_phase_scene: tests read it here)
     drive_trajectory,
     make_driving_scene,
-    make_scene,
     render_stereo,
+    tpu_phase_scene,
 )
 from odometry_torch.device import card_line
 from odometry_torch.distributed import ring_exchange
@@ -146,13 +157,24 @@ from odometry_torch.eval.metrics import mean_translation_error
 from odometry_torch.kernels import _build, disparity_band, disparity_full
 from odometry_torch.mapping.ba import BAConfig, BAProblem, ba_solve
 from odometry_torch.mapping.keyframe import create_store, insert_keyframe, window_slots
-from odometry_torch.mapping.loop_closure import LoopClosureConfig
 from odometry_torch.pipeline import odometry as odometry_module
 from odometry_torch.pipeline import runner
 from odometry_torch.pipeline.odometry import init, step
 from odometry_torch.pipeline.runner import run_sequence
-from odometry_torch.pipeline.slam import run_slam
-from odometry_torch.tools import accuracy_sweep, kernel_parity, profile_step
+from odometry_torch.tools import (
+    accuracy_sweep,
+    bench,
+    bisect_fast_robustness,
+    capacity_knee,
+    diag_basin,
+    diag_depth,
+    diag_depth_decomp,
+    diag_depth_filters,
+    diag_divergence,
+    kernel_parity,
+    profile_step,
+    verify_loop_closure,
+)
 from odometry_torch.tools.kernel_parity import KERNELS, KITTI, MIN_D, W_KITTI, stereo
 from odometry_torch.utils.checkpoint import load_pytree, save_pytree
 from odometry_torch.utils.debug import DebugCheckError
@@ -165,28 +187,6 @@ WIDE_TIMING = (376, 6000)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 FLOPS_PER_PAIR = 24
-
-
-class _TpuPhaseScene(PlaneScene):
-    """The scene as bench.py's TPU rendered it, as far as that is known:
-    ``jnp.einsum`` at the TPU's default precision rounds its operands to
-    bf16, and in the texture phase ``freqs . p`` that moves a point 14 m
-    away by up to 3 cm. The amplitude sums stay float32. On float32 frames
-    at 376x1241 the reference itself misses bench.py's gate; on these it
-    meets it, run on the CPU (PERF.md, ROADMAP C5)."""
-
-    def texture(self, p: torch.Tensor) -> torch.Tensor:
-        bf16 = lambda a: a.to(torch.bfloat16).float()
-        s = torch.sin(bf16(p) @ bf16(self.freqs).T + self.phases)
-        diff = p[:, None, :] - self.blob_centers
-        r2 = torch.sum(diff * diff, dim=-1)
-        return 127.5 + (s @ self.amps + torch.exp(-r2 * self.blob_inv2s2) @ self.blob_amps)
-
-
-def tpu_phase_scene(scene: PlaneScene) -> PlaneScene:
-    """`scene` rendering with the TPU's bf16 texture phase."""
-    return _TpuPhaseScene(**{f.name: getattr(scene, f.name)
-                             for f in dataclasses.fields(scene)})
 
 
 def _tiled_timing(card):
@@ -361,56 +361,74 @@ def _check_state_on_card(frames, cfg):
     print(f"state: {len(leaves)} tensors, all on {leaves[0].device}", flush=True)
 
 
+@contextlib.contextmanager
+def _depth_calls(*modules):
+    """Counts the ``compute_depth`` calls made through `modules` (each holds
+    the name ``compute_depth``; ``pipeline.odometry`` by default) while
+    active: one SSD search each. Yields a one-item list."""
+    modules = modules or (odometry_module,)
+    calls = [0]
+    real = [m.compute_depth for m in modules]
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for m, fn in zip(modules, real):
+        m.compute_depth = counted(fn)
+    try:
+        yield calls
+    finally:
+        for m, fn in zip(modules, real):
+            m.compute_depth = fn
+
+
 def _e2e(card):
-    """fast_config at KITTI size through the port's run_sequence, on the card."""
+    """fast_config at KITTI size through the port's run_sequence, on the card:
+    bench.py's workload, gate and timed loop through ``tools/bench.py``."""
     cfg = fast_config()
-    H, W = cfg.camera.height, cfg.camera.width
-    c = cfg.camera
-    cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
-    scene = tpu_phase_scene(make_scene(3, depth=14.0, device="cuda"))
-    runs = []
-    for seed in (4, 5, 11):
-        poses = drive_trajectory(49, step=0.35, seed=seed)
-        frames = [render_stereo(scene, cam, c.baseline, T, H, W)[:2] for T in poses]
-        torch.cuda.synchronize()
-        runs.append((seed, poses, frames))
+    runs = [(seed, *bench.render_frames(cfg, seed, device="cuda")) for seed in bench.SEEDS]
 
     _reset_counts()  # count this path's launches only
-    results = []
-    for seed, poses, frames in runs:
-        summaries = []
-        res = run_sequence(frames, cfg, device="cuda",
-                           progress=lambda i, out: summaries.append(out.summary))
-        results.append((seed, poses, res, summaries))
+    records = bench.accuracy(cfg, runs, device="cuda")
     launches, full_launches, _ = _counts()
 
-    depth_runs = 0
-    mtes = []
-    for seed, poses, res, summaries in results:
-        s = torch.stack(summaries).cpu().numpy()
-        # A frame ran depth iff it reports survivors or a failed depth.
-        depth_runs += 1 + int(((s[:, 37] > 0) | (s[:, 34] < 0.5)).sum())
+    depth_runs = sum(r["depth_runs"] for r in records)
+    for r in records:
+        res = r["result"]
+        ms = float(np.median(res.per_frame_ms))
         # The reference's eval_pose metric (run_odometry_kitti_offline.cpp:
         # 361-372): mean unaligned translation error.
-        mte = mean_translation_error(poses[: res.num_frames], res.poses)
-        mtes.append(mte)
-        ms = float(np.median(res.per_frame_ms))
-        print(f"e2e seed={seed}: frames={res.num_frames} mte={mte:.6f} "
+        print(f"e2e seed={r['seed']}: frames={res.num_frames} mte={r['mte']:.6f} "
               f"keyframes={len(res.keyframe_ids)} lost={len(res.lost_ids)} "
               f"fps={res.fps:.3f} median_ms_per_frame={ms:.3f} [{card}]", flush=True)
-        if res.failed_at is not None:
-            raise RuntimeError(f"seed {seed}: depth failed at frame {res.failed_at}")
-    med = float(np.median(mtes))
-    print(f"e2e median mte={med:.6f} (gate < 0.15); band-kernel launches={launches}, "
+    med = bench.check_gate([r["mte"] for r in records])
+    print(f"e2e median mte={med:.6f} (gate < {bench.GATE}); band-kernel launches={launches}, "
           f"full-search launches={full_launches}, depth runs={depth_runs}", flush=True)
-    if not med < 0.15:
-        raise RuntimeError(f"median mte {med} fails the gate 0.15 ({mtes})")
     if launches == 0 or launches != depth_runs * _per_call(cfg):
         raise RuntimeError(f"band kernel launches {launches} != depth runs {depth_runs}")
     if full_launches != 0:
         raise RuntimeError(f"fast_config launched the full-search kernel {full_launches} times")
     _check_state_on_card(runs[0][2], cfg)
-    return launches, runs, [res for _, _, res, _ in results]
+
+    # bench.py's timed loop on the timed seed's frames.
+    frames = next(frames for seed, _, frames in runs if seed == bench.TIMED_SEED)
+    _reset_counts()
+    with _depth_calls() as calls:
+        fps, steps = bench.timed_fps(cfg, frames, device="cuda")
+    timed_band, timed_full, _ = _counts()
+    line = bench.result_line(fps)
+    print(json.dumps(line), flush=True)
+    print(f"bench: {steps} timed steps of seed {bench.TIMED_SEED} (after init and 3 warm-up "
+          f"steps), {fps:.3f} frames/s, {1e3 / fps:.3f} ms per frame; band-kernel launches="
+          f"{timed_band}, full-search launches={timed_full}, depth runs={calls[0]} [{card}]",
+          flush=True)
+    if timed_band != calls[0] * _per_call(cfg) or timed_full != 0 or not np.isfinite(fps):
+        raise RuntimeError(f"bench timed loop: launches B1 {timed_band} B2 {timed_full}, depth "
+                           f"runs {calls[0]}, fps {fps}")
+    return launches + timed_band, runs, [r["result"] for r in records]
 
 
 def _driving_frames(seeds, num_frames, cfg):
@@ -886,45 +904,25 @@ def _store_ba_phase(card, stores):
 SLAM_REFERENCE_END_ERR = (0.019, 0.0072)
 
 
-def _loop_fixture(cfg):
-    """Out and back through make_driving_scene(3, side_x=20, wall_z=26): 49
-    frames, 0.35 m steps, x = 0.1 sin(0.9 k), rendered on the card."""
-    c = cfg.camera
-    cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
-    scene = make_driving_scene(3, side_x=20.0, wall_z=26.0, device="cuda")
-    n_half, stride = 24, 0.35
-    poses = []
-    for k in range(2 * n_half + 1):
-        T = np.eye(4, dtype=np.float32)
-        T[:3, 3] = (0.1 * np.sin(0.9 * k), 0.0, stride * (k if k <= n_half else 2 * n_half - k))
-        poses.append(T)
-    frames = [render_stereo(scene, cam, c.baseline, T, c.height, c.width)[:2] for T in poses]
-    torch.cuda.synchronize()
-    return np.stack(poses), frames
-
-
 def _slam_phase(card):
-    """Phase 12: run_slam on the loop fixture, odometry only (BA every 100
-    keyframes, no loop closure) and with BA every 2 keyframes and loop
-    closure, gated as tools/verify_loop_closure_tpu.py gates it. Returns B1's
-    launches."""
-    cfg = fast_config()
-    cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(cfg.keyframe,
-                                                                motion_threshold=0.4))
-    truth, frames = _loop_fixture(cfg)
-    lc = LoopClosureConfig(radius=1.5, min_separation=3, min_inliers=200)
+    """Phase 12: run_slam on the loop fixture of ``tools/verify_loop_closure.py``,
+    odometry only (BA every 100 keyframes, no loop closure) and with BA every
+    2 keyframes and loop closure: the tool's JSON line, its gates and ``OK``,
+    then this phase's own gates. Returns B1's launches."""
+    cfg = verify_loop_closure.loop_config()
+    poses = verify_loop_closure.loop_trajectory()
+    truth = np.stack(poses)
+    frames = verify_loop_closure.loop_frames(cfg, poses, device="cuda")
     summaries = []
     progress = lambda i, out: summaries.append(out.summary)
 
     _reset_counts()  # count this path's launches only
-    res = {
-        "odometry": run_slam(frames, cfg, map_capacity=32, window=4, ba_every=100,
-                             loop_closure=False, progress=progress, device="cuda"),
-        "slam": run_slam(frames, cfg, map_capacity=32, window=4, ba_every=2, loop_closure=True,
-                         lc_cfg=lc, progress=progress, device="cuda"),
-    }
+    o, m = verify_loop_closure.run_pair(frames, cfg, device="cuda", progress=progress)
     torch.cuda.synchronize()
     band, full, ring = _counts()
+    res = {"odometry": o, "slam": m}
+
+    print(json.dumps(verify_loop_closure.report(o, m, poses)), flush=True)
 
     s = torch.stack(summaries).cpu().numpy()
     # Two inits, and each frame that ran depth (survivors or a failed depth).
@@ -933,9 +931,8 @@ def _slam_phase(card):
     for name, r in res.items():
         err[name] = float(np.linalg.norm(r.poses[-1][:3, 3] - truth[-1][:3, 3]))
         ate[name] = mean_translation_error(truth[: r.num_frames], r.poses)
-    rep = res["slam"].stage_report
+    rep = m.stage_report
     ms = lambda k: rep[k]["mean_ms"] if k in rep else float("nan")
-    m, o = res["slam"], res["odometry"]
     print(f"slam: frames={m.num_frames} keyframes={len(m.keyframe_ids)} "
           f"(odometry {len(o.keyframe_ids)}) closures={m.loop_closures} ba_runs={m.ba_runs} "
           f"failed_at={m.failed_at}/{o.failed_at}; endpoint error odometry={err['odometry']:.6f} "
@@ -949,6 +946,8 @@ def _slam_phase(card):
           f"not a target): odometry {SLAM_REFERENCE_END_ERR[0]} m, BA + loop closure "
           f"{SLAM_REFERENCE_END_ERR[1]} m; band-kernel launches={band}, full-search "
           f"launches={full}, ring launches={ring}, depth runs={depth_runs}", flush=True)
+    verify_loop_closure.check(o, m, poses)
+    print("OK", flush=True)
     if m.failed_at is not None or o.failed_at is not None:
         raise RuntimeError(f"slam: depth failed at frame {m.failed_at} / {o.failed_at}")
     if m.loop_closures < 1:
@@ -1053,21 +1052,12 @@ def _cli(argv, dev, depth_runs=None):
     before and read just after; returns (its standard output, (B1, B2, B3),
     seconds). `depth_runs`, a one-item list, counts compute_depth calls."""
     out = io.StringIO()
-    real_depth = odometry_module.compute_depth
-
-    def counted(*a, **k):
-        depth_runs[0] += 1
-        return real_depth(*a, **k)
-
-    if depth_runs is not None:
-        odometry_module.compute_depth = counted
     _reset_counts()
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out):
-            rc = cli.main([*argv, "--device", dev])
-    finally:
-        odometry_module.compute_depth = real_depth
+    with _depth_calls() as calls, contextlib.redirect_stdout(out):
+        rc = cli.main([*argv, "--device", dev])
+    if depth_runs is not None:
+        depth_runs[0] += calls[0]
     if dev == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1317,6 +1307,107 @@ def _tools_phase(card):
     return band, full
 
 
+# Phase 15: the reference's diagnostic tools, each cut to a few runs.
+DIAG_SEED = 4
+
+
+def _finite(*values) -> bool:
+    return all(np.isfinite(np.asarray(v, np.float64)).all() for v in values)
+
+
+def _diag_phase(card, bench_frames):
+    """Phase 15: the reference's diagnostic tools through the port on the
+    card: ``capacity_knee.measure`` on one row of each sweep (phase 5's seed-4
+    frames), ``diag_divergence`` on fast/plane and accurate/driving seed 4,
+    ``diag_basin`` on seed 11 with 2 variants, ``diag_depth`` on plane/fast
+    and driving/accurate seed 4, ``diag_depth_decomp`` on one seed,
+    ``diag_depth_filters`` on 2 variants and ``bisect_fast_robustness`` on 1
+    variant x 2 cases. Each is gated on finite output and on its launches, set
+    to 0 just before it: B1 once per depth run and B2 never on fast_config, B2
+    once per depth run and B1 never on accurate_config. Returns the (B1, B2)
+    launches."""
+    t_phase = time.perf_counter()
+    fast, acc = fast_config(), accurate_config()
+    total = [0, 0]
+    depth_modules = (odometry_module, diag_depth, diag_depth_decomp, diag_depth_filters)
+
+    def run(name, cfg, kernel, fn):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _depth_calls(*depth_modules) as calls:
+            out = fn()
+        torch.cuda.synchronize()
+        b1, b2, _ = _counts()
+        runs = calls[0] * _per_call(cfg)
+        want = (runs, 0) if kernel == "band" else (0, runs)
+        print(f"diag {name}: depth runs {calls[0]}, band-kernel launches={b1}, full-search "
+              f"launches={b2}; {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        if runs == 0 or (b1, b2) != want:
+            raise RuntimeError(f"diag {name}: launches B1 {b1} B2 {b2}, want {want}")
+        total[0] += b1
+        total[1] += b2
+        return out
+
+    poses, frames = bench_frames
+    log = lambda line: print(f"capacity_knee: {line}", flush=True)
+    rows = run("capacity_knee", fast, "band", lambda: capacity_knee.knee(
+        fast, frames, poses, caps=(2048,), max_residuals=(32768,), device="cuda", log=log))
+    for r in rows:
+        if not (_finite(r["mte"], r["fps"]) and r["fps"] > 0):
+            raise RuntimeError(f"capacity_knee: row {r}")
+
+    for cfg_name, cfg, scene, kernel in (("fast", fast, "plane", "band"),
+                                         ("accurate", acc, "driving", "full")):
+        d = run(f"diag_divergence {cfg_name}/{scene}", cfg, kernel,
+                lambda: diag_divergence.divergence(cfg, scene, DIAG_SEED, device="cuda"))
+        for line in diag_divergence.format_run(cfg_name, scene, DIAG_SEED, d):
+            print(f"diag_divergence: {line}", flush=True)
+        if not d["rows"] or not _finite(d["mte"], [[r["err"], r["motion"], r["err_first"],
+                                                     r["err_final"]] for r in d["rows"]]):
+            raise RuntimeError(f"diag_divergence {cfg_name}/{scene}: non-finite output")
+
+    rows = run("diag_basin", fast, "band", lambda: diag_basin.basin(
+        fast, 11, "plane", diag_basin.VARIANTS[:2], device="cuda"))
+    for r in rows:
+        print(f"diag_basin: {diag_basin.format_row(r)}", flush=True)
+        if not _finite(r["terr"], r["levels"]):
+            raise RuntimeError(f"diag_basin: row {r}")
+
+    for cfg_name, cfg, scene, kernel in (("fast", fast, "plane", "band"),
+                                         ("accurate", acc, "driving", "full")):
+        st = run(f"diag_depth {scene}/{cfg_name}", cfg, kernel,
+                 lambda: diag_depth.depth_stats(cfg, scene, DIAG_SEED, device="cuda"))
+        print(f"diag_depth: {diag_depth.format_stats(cfg_name, scene, DIAG_SEED, st)}",
+              flush=True)
+        if not (st["n"] > 0 and _finite(list(st.values()))):
+            raise RuntimeError(f"diag_depth {scene}/{cfg_name}: {st}")
+
+    d = run("diag_depth_decomp", fast, "band",
+            lambda: diag_depth_decomp.decompose(fast, "plane", 5, device="cuda"))
+    for line in diag_depth_decomp.format_decomposition(d):
+        print(f"diag_depth_decomp: {line}", flush=True)
+    if not _finite(list(d["search"].values()), list(d["refined"].values()), d["bad_by_rows"]):
+        raise RuntimeError(f"diag_depth_decomp: {d}")
+
+    variants = [v for v in diag_depth_filters.VARIANTS if v[0] in ("base", "all")]
+    rows = run("diag_depth_filters", fast, "band",
+               lambda: diag_depth_filters.filters(fast, variants, device="cuda"))
+    for r in rows:
+        print(f"diag_depth_filters: {diag_depth_filters.format_row(r)}", flush=True)
+        if not (min(r["n"]) > 0 and _finite(r["frac1"], r["bias"])):
+            raise RuntimeError(f"diag_depth_filters: row {r}")
+
+    log = lambda line: print(f"bisect: {line}", flush=True)
+    rows = run("bisect_fast_robustness", fast, "band", lambda: bisect_fast_robustness.bisect(
+        fast, bisect_fast_robustness.VARIANTS[:1], device="cuda", log=log))
+    for r in rows:
+        if r["error"] is not None or not _finite(r["mte"]):
+            raise RuntimeError(f"bisect: row {r}")
+    print(f"diag: phase 15 took {time.perf_counter() - t_phase:.3f} s (B1 {total[0]}, B2 "
+          f"{total[1]} launches) [{card}]", flush=True)
+    return tuple(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1370,6 +1461,10 @@ def main() -> int:
     band14, full14 = _tools_phase(card)
     launches["band"] += band14
     launches["full"] += full14
+    seed4 = next((poses, frames) for seed, poses, frames in e2e_runs if seed == bench.TIMED_SEED)
+    band15, full15 = _diag_phase(card, seed4)
+    launches["band"] += band15
+    launches["full"] += full15
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

@@ -2,8 +2,9 @@
 ``data/synthetic.py``: ``PlaneScene``, ``MultiPlaneScene``, ``make_scene``,
 ``make_driving_scene``, ``make_natural_scene``, ``render``, ``render_stereo``,
 ``right_camera_pose``, ``drive_trajectory``, ``stereo_sequence`` and the
-photometric nuisance model), and ``tie_stereo_pair``, the port's own
-integer-valued pair for exact winner-map parity.
+photometric nuisance model), ``tie_stereo_pair``, the port's own
+integer-valued pair for exact winner-map parity, and ``tpu_phase_scene``,
+bench.py's plane as its TPU rounded the texture phase.
 
 The scene makers make the same numpy ``default_rng`` draws as the
 reference, so a scene's parameters are bit-identical for a seed; they are
@@ -58,6 +59,29 @@ class PlaneScene:
         r2 = torch.sum(diff * diff, dim=-1)
         val = val + torch.exp(-r2 * self.blob_inv2s2) @ self.blob_amps
         return 127.5 + val
+
+
+class _TpuPhaseScene(PlaneScene):
+    """The scene as bench.py's TPU rendered it, as far as that is known:
+    ``jnp.einsum`` at the TPU's default precision rounds its operands to
+    bf16, and in the texture phase ``freqs . p`` that moves a point 14 m
+    away by up to 3 cm. The amplitude sums stay float32. On float32 frames
+    at 376x1241 the reference itself misses bench.py's gate; on these it
+    meets it, run on the CPU (PERF.md, ROADMAP C5)."""
+
+    def texture(self, p: torch.Tensor) -> torch.Tensor:
+        bf16 = lambda a: a.to(torch.bfloat16).float()
+        s = torch.sin(bf16(p) @ bf16(self.freqs).T + self.phases)
+        diff = p[:, None, :] - self.blob_centers
+        r2 = torch.sum(diff * diff, dim=-1)
+        return 127.5 + (s @ self.amps + torch.exp(-r2 * self.blob_inv2s2) @ self.blob_amps)
+
+
+def tpu_phase_scene(scene: PlaneScene) -> PlaneScene:
+    """`scene` rendering with the TPU's bf16 texture phase (the frames of
+    ``odometry_torch/tools/bench.py``)."""
+    return _TpuPhaseScene(**{f.name: getattr(scene, f.name)
+                             for f in dataclasses.fields(scene)})
 
 
 def _f32(dev):

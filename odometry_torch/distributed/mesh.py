@@ -72,15 +72,16 @@ def _array(devs: list, shape: tuple) -> np.ndarray:
 
 
 def sequence_mesh(n: int | None = None, device="cuda") -> Mesh:
-    """1-D mesh of `n` ranks along "seq" (one sequence per rank).
+    """1-D mesh of `n` ranks along "seq"; S sequences split over them in order.
 
     `device` is one device, on which all `n` ranks live, or a list of
-    devices, one per rank (`n` defaults to its length).
+    devices, one per rank. Without `n`, one rank per device given, as the
+    reference's ``sequence_mesh()`` takes every device: one rank for a single
+    device (which then steps all S sequences as one batch), ``len(device)``
+    for a list.
     """
     if n is None:
-        if not isinstance(device, (list, tuple)):
-            raise ValueError("sequence_mesh: give n, or a list of devices")
-        n = len(device)
+        n = len(device) if isinstance(device, (list, tuple)) else 1
     return Mesh(_array(_device_list(device, n), (n,)), ("seq",))
 
 

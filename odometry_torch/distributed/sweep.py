@@ -126,9 +126,10 @@ def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,
               progress: Callable[[int, list, list | None, torch.Tensor], None] | None = None
               ) -> np.ndarray:
     """Run every sequence of `frames_per_seq` (lists of (left, right) pairs
-    of equal length) over `mesh`, by default ``sequence_mesh(S, device)``:
-    one sequence per rank, all on `device`. ``sequence_mesh(1, device)``
-    steps all S as one batch.
+    of equal length) over `mesh`, by default ``sequence_mesh(None, device)``:
+    one rank per device, so on one device all S sequences step as one batch,
+    as the reference's ``vmap`` over its one device does.
+    ``sequence_mesh(S, device)`` steps them in turn, one sequence per rank.
 
     `progress(frame_id, states, outs, global_ok)` is called after init
     (frame 0, outs None, global_ok over the init depth) and after every
@@ -140,7 +141,7 @@ def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,
     if any(len(f) != num_frames for f in frames_per_seq):
         raise ValueError("run_sweep: sequences of different lengths")
     if mesh is None:
-        mesh = sequence_mesh(num_seqs, device)
+        mesh = sequence_mesh(None, device)
     frame = lambda i, k: [f[i][k] for f in frames_per_seq]
     states = batched_init(frame(0, 0), frame(0, 1), cfg, mesh)
     if progress is not None:

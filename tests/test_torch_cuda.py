@@ -537,3 +537,43 @@ def test_device_trace_sees_the_cards_kernels(card, tmp_path):
     assert 0.0 <= summ["idle_share"] < 1.0
     assert any("band_kernel" in op["name"] for op in trace_summary(prof, top=None)["top_device_ops"])
     assert list(tmp_path.glob("trace-*.json"))
+
+
+def test_bench_gate_and_line_on_the_card(card):
+    """odometry_torch/tools/bench.py at KITTI size, cut to 13 frames: the
+    median-mte gate holds (it raises otherwise) and the JSON line is
+    bench.py's; B1 only, once per depth run."""
+    import json
+
+    from odometry_torch.tools import bench
+
+    disparity_band.LAUNCHES = disparity_full.LAUNCHES = 0
+    line, records = bench.bench(num_frames=13, device=card)
+    runs = sum(r["depth_runs"] for r in records)
+    assert disparity_full.LAUNCHES == 0 and disparity_band.LAUNCHES >= runs >= 3
+    assert set(json.loads(json.dumps(line))) == {"metric", "value", "unit", "vs_baseline"}
+    assert line["metric"] == bench.METRIC and line["value"] > 0
+
+
+def test_default_sweep_is_one_rank_on_the_card(card):
+    """sequence_mesh() on the card is one rank, and run_sweep without a
+    mesh steps the three sequences as one batch: one B1 launch per batched
+    depth run (ROADMAP C14)."""
+    from odometry_torch.distributed.sweep import run_sweep
+
+    assert sequence_mesh().shape == {"seq": 1}
+    cam = Pinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
+    scene = make_scene(3, depth=14.0, device="cpu")
+    seqs = [[tuple(a.numpy() for a in render_stereo(scene, cam, 0.537, T, HS, WS)[:2])
+             for T in drive_trajectory(6, step=0.35, seed=seed)] for seed in (4, 5, 11)]
+    runs, sizes = [], []
+
+    def progress(i, states, outs, ok):
+        sizes.append([s.cur_pose.shape[0] for s in states])
+        runs.append(outs is None or bool(((outs[0].summary[:, 37] > 0)
+                                          | (outs[0].summary[:, 34] < 0.5)).any()))
+
+    before = disparity_band.LAUNCHES
+    run_sweep(seqs, CFG, progress=progress)
+    assert sizes == [[3]] * 6
+    assert disparity_band.LAUNCHES - before == sum(runs)

@@ -186,10 +186,10 @@ def test_sweep_health_counts_every_sequence(sequences):
 
 
 def test_run_sweep_equals_run_sequence(sequences):
-    """A sequence stepped inside run_sweep equals run_sequence on it alone,
-    bit for bit (the same ops on the same device)."""
+    """A sequence stepped inside run_sweep, one per rank in turn, equals
+    run_sequence on it alone, bit for bit (the same ops on the same device)."""
     calls = []
-    poses = tsw.run_sweep(sequences, CFG_T, device="cpu",
+    poses = tsw.run_sweep(sequences, CFG_T, sequence_mesh(NUM_SEQS, device="cpu"),
                           progress=lambda i, states, outs, ok: calls.append((i, bool(ok))))
     assert poses.shape == (NUM_SEQS, NUM_FRAMES, 4, 4) and poses.dtype == np.float32
     assert calls == [(i, True) for i in range(NUM_FRAMES)]
@@ -315,6 +315,7 @@ def test_default_device_raises_without_a_card(sequences, monkeypatch):
         lambda: init(left, right, CFG_T),
         lambda: run_sequence(sequences[0], CFG_T),
         lambda: sequence_mesh(2),
+        lambda: sequence_mesh(),
         lambda: grid_mesh(1, 2),
         lambda: tsw.run_sweep(sequences[:1], CFG_T),
         lambda: create_store(2, 8),
