@@ -108,7 +108,18 @@ prints no result line):
     ``diag_depth_decomp`` on one seed, ``diag_depth_filters`` on 2 variants
     and ``bisect_fast_robustness`` on 1 variant x 2 cases; each gated on
     finite output and on its launches (B1 once per depth run and B2 never on
-    fast_config, B2 once per depth run and B1 never on accurate_config).
+    fast_config, B2 once per depth run and B1 never on accurate_config);
+16. the reference's measuring tools through ``odometry_torch/tools/``:
+    ``roofline`` (four rows against their bounds; efficiency at most 105%
+    unless the row's bytes fit the L2), ``microbench`` (the lm suite at
+    N = 8192 and 40960 with both samplers, one point count of the gather
+    and sample suites, the pyramid, depth and step suites; every time finite
+    and above 0; one replay of the captured lm body gives the eager call's
+    delta bit for bit), ``verify_mm`` (its runs and gates, ``VERIFY OK``),
+    ``trace_step`` of 21 steps and of 10 ``compute_depth`` calls (SSD
+    kernels in each trace) and ``preflight --quick`` (bench in a process of
+    its own); B1 once per SSD search the tools make in this process and B2
+    only in verify_mm's kitti_config run, once per frame.
 
 Phase 3's harness also holds the tiled route of B1 and B2 (rows too wide
 for one block's shared memory, ROADMAP C10) bit for bit against the plain
@@ -172,23 +183,22 @@ from odometry_torch.tools import (
     diag_depth_filters,
     diag_divergence,
     kernel_parity,
+    microbench,
+    preflight,
     profile_step,
+    roofline,
+    trace_step,
     verify_loop_closure,
+    verify_mm,
 )
 from odometry_torch.tools.kernel_parity import KERNELS, KITTI, MIN_D, W_KITTI, stereo
+from odometry_torch.tools.roofline import PEAK_BYTES_PER_S, search_bound
 from odometry_torch.utils.checkpoint import load_pytree, save_pytree
 from odometry_torch.utils.debug import DebugCheckError
+from odometry_torch.utils.profiling import capture, device_ms
 
 # Where the tiled route is timed beside the plain version.
 WIDE_TIMING = (376, 6000)
-# The H100's published peaks (NVIDIA data sheet, SXM): float32 outside the
-# tensor cores, and HBM3. One (x, xr) pair's SSD is about 24 float32
-# operations: 8 subtractions, 1 multiply, 7 fused multiply-adds counted as two.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-FLOPS_PER_PAIR = 24
-
-
 def _tiled_timing(card):
     """The tiled route's device times (reported, not gated): at WIDE_TIMING
     beside the plain version and the bound, and forced at KITTI size beside
@@ -200,9 +210,9 @@ def _tiled_timing(card):
                   max_disparity=max_d, lr=True)
         H, W = WIDE_TIMING
         ls, rs = stereo(H, W, 0)
-        wide_ms = _device_ms(lambda: fn(ls, rs, **kw), 10)
-        wide_plain_ms = _device_ms(lambda: plain(ls, rs, **kw), 2)
-        bound_ms, bound_by = _bound(H, W, 4, kw["min_disparity"], max_d, True)
+        wide_ms = device_ms(lambda: fn(ls, rs, **kw), 10)
+        wide_plain_ms = device_ms(lambda: plain(ls, rs, **kw), 2)
+        bound_ms, bound_by = search_bound(H, W, 4, kw["min_disparity"], max_d, True)
         print(f"timing {H}x{W} {kernel} {label} (tiled route, {disparity_band.TILED_LAUNCHES} "
               f"launches per call): kernel {wide_ms:.4f} ms, plain {wide_plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / wide_ms:.1f}% of it (device "
@@ -213,7 +223,7 @@ def _tiled_timing(card):
         order = list(runs) + list(runs)[::-1]
         times = {r: [] for r in runs}
         for r in order:
-            times[r].append(_device_ms(runs[r], 50))
+            times[r].append(device_ms(runs[r], 50))
         shown = ", ".join(f"{r} " + " / ".join(f"{t:.4f}" for t in v) for r, v in times.items())
         print(f"timing {KITTI[0]}x{KITTI[1]} {kernel} {label}: {shown} ms (device time of "
               f"back-to-back calls, in turns {'-'.join(order)}) [{card}]", flush=True)
@@ -240,8 +250,8 @@ def _batch_timing(card):
                 "single": lambda: [fn(a, b, **kw) for a, b in zip(ls, rs)]}
         times = {r: [] for r in runs}
         for r in ("batched", "single", "single", "batched"):
-            times[r].append(_device_ms(runs[r], 20))
-        one_ms, bound_by = _bound(*KITTI, 4, kw["min_disparity"], max_d, True)
+            times[r].append(device_ms(runs[r], 20))
+        one_ms, bound_by = search_bound(*KITTI, 4, kw["min_disparity"], max_d, True)
         bound_ms = B * one_ms
         batched, single = (float(np.median(times[r])) for r in ("batched", "single"))
         print(f"timing batch {B}x{KITTI[0]}x{KITTI[1]} {kernel} {label}: one batched call "
@@ -267,29 +277,9 @@ def _time_ms(fn, reps):
     return float(np.median(times))
 
 
-def _pairs(H, W, boundary, min_d, max_d):
-    """(x, xr) pairs of one winner-map call: boundary <= xr, min_d <= x - xr
-    <= max_d (None = the full search), for every row."""
-    x = np.arange(W)
-    lo = np.maximum(boundary, x - (W if max_d is None else max_d))
-    hi = x - max(1, min_d or 1)
-    return H * int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def _bound(H, W, boundary, min_d, max_d, lr):
-    """(bound_ms, bound_by): the least time the card could take for one call,
-    the larger of its operations over the float32 peak and its bytes (two
-    images read once, each output map written once: best, match and, with
-    `lr`, rmatch) over the HBM rate."""
-    flop_s = FLOPS_PER_PAIR * _pairs(H, W, boundary, min_d, max_d) / PEAK_F32_FLOPS
-    n_out = 2 + int(lr)
-    byte_s = 4 * H * W * (2 + n_out) / PEAK_BYTES_PER_S
-    return 1e3 * max(flop_s, byte_s), ("operations" if flop_s >= byte_s else "bytes")
-
-
 def _timing(kernel, label, kw, card):
     """Kernel and plain-version times at the KITTI shape: device time per call
-    of back-to-back calls (`_device_ms`, the kernels line's numbers), and the
+    of back-to-back calls (`device_ms`, the kernels line's numbers), and the
     median of CUDA events around single calls, which also holds the host's
     enqueue (ctypes, the output allocations). For B1 also B2's device time on
     the same band, the port's other kernel for it (not a library call)."""
@@ -298,15 +288,15 @@ def _timing(kernel, label, kw, card):
     for _ in range(3):
         fn(ls, rs, **kw)
         plain(ls, rs, **kw)
-    ms = _device_ms(lambda: fn(ls, rs, **kw), 50)
-    plain_ms = _device_ms(lambda: plain(ls, rs, **kw), 5)
+    ms = device_ms(lambda: fn(ls, rs, **kw), 50)
+    plain_ms = device_ms(lambda: plain(ls, rs, **kw), 5)
     ev_ms = _time_ms(lambda: fn(ls, rs, **kw), 21)
     ev_plain_ms = _time_ms(lambda: plain(ls, rs, **kw), 7)
-    bound_ms, bound_by = _bound(*KITTI, kw["boundary"], kw["min_disparity"],
+    bound_ms, bound_by = search_bound(*KITTI, kw["boundary"], kw["min_disparity"],
                                 kw["max_disparity"], kw["lr"])
     beside = ""
     if kernel == "band":
-        full_ms = _device_ms(lambda: disparity_full.disparity_full(ls, rs, **kw), 50)
+        full_ms = device_ms(lambda: disparity_full.disparity_full(ls, rs, **kw), 50)
         beside = f"; B2 on the same band {full_ms:.4f} ms (device time)"
     print(f"timing {KITTI[0]}x{KITTI[1]} {kernel} {label}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms (device time of back-to-back calls); kernel {ev_ms:.4f} ms, plain "
@@ -362,13 +352,14 @@ def _check_state_on_card(frames, cfg):
 
 
 @contextlib.contextmanager
-def _depth_calls(*modules):
-    """Counts the ``compute_depth`` calls made through `modules` (each holds
-    the name ``compute_depth``; ``pipeline.odometry`` by default) while
-    active: one SSD search each. Yields a one-item list."""
+def _depth_calls(*modules, names=("compute_depth",)):
+    """Counts the calls made through `modules` (``pipeline.odometry`` by
+    default) to the functions of `names` that each holds (``compute_depth``
+    by default; each call is one SSD search) while active. Yields a one-item
+    list."""
     modules = modules or (odometry_module,)
     calls = [0]
-    real = [m.compute_depth for m in modules]
+    real = [(m, name, getattr(m, name)) for m in modules for name in names if hasattr(m, name)]
 
     def counted(fn):
         def wrapper(*a, **k):
@@ -376,13 +367,13 @@ def _depth_calls(*modules):
             return fn(*a, **k)
         return wrapper
 
-    for m, fn in zip(modules, real):
-        m.compute_depth = counted(fn)
+    for m, name, fn in real:
+        setattr(m, name, counted(fn))
     try:
         yield calls
     finally:
-        for m, fn in zip(modules, real):
-            m.compute_depth = fn
+        for m, name, fn in real:
+            setattr(m, name, fn)
 
 
 def _e2e(card):
@@ -534,37 +525,14 @@ def _ring_shards(num, shape, dtype, offset, g):
     return [b[offset:].view(shape) for b in base]
 
 
-def _device_ms(fn, reps):
-    """Device time of one call of `fn` when `reps` calls run back to back:
-    a sleep kernel keeps the card busy while the host enqueues the calls,
-    so the host's launch overhead does not show (CUDA events around the
-    calls, after the sleep)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    # Cycles at up to 2 GHz: at a lower clock the sleep only lasts longer.
-    torch.cuda._sleep(int(2e6 * (2.0 * reps * host_ms + 5.0)))
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def _ring_timing(shards, card, reps):
     """Kernel, plain-version and torch.cat x num device times of one all-gather
     of `shards`, beside the bound."""
     num = len(shards)
     nbytes = shards[0].numel() * shards[0].element_size()
-    ms = _device_ms(lambda: ring_exchange.ring_gather(shards), reps)
-    plain_ms = _device_ms(lambda: ring_exchange.ring_gather_plain(shards), 5)
-    library_ms = _device_ms(lambda: [torch.cat(shards) for _ in range(num)], reps)
+    ms = device_ms(lambda: ring_exchange.ring_gather(shards), reps)
+    plain_ms = device_ms(lambda: ring_exchange.ring_gather_plain(shards), 5)
+    library_ms = device_ms(lambda: [torch.cat(shards) for _ in range(num)], reps)
     # Least bytes an all-gather on one card moves: every shard read once,
     # every rank's output written once.
     moved = num * nbytes + num * num * nbytes
@@ -1408,6 +1376,115 @@ def _diag_phase(card, bench_frames):
     return tuple(total)
 
 
+# Phase 16: the reference's measuring tools. The microbench's cut: the lm
+# suite at two of its three point counts with both samplers, one point count
+# of the gather and sample suites, all of the others.
+MICROBENCH_CUT = dict(lm_sizes=(8192, 40960), gather_sizes=(40960,), sample_sizes=(40960,))
+# The functions through which the phase's tools make their SSD searches:
+# pipeline.odometry's compute_depth (init and step), the microbench's
+# compute_depth and disparity_search, trace_step's compute_depth and the
+# roofline's disparity_winner_maps. Graph replays launch B1 again without a
+# call, and neither the wrappers nor these counts see them.
+SEARCH_NAMES = ("compute_depth", "disparity_search", "disparity_winner_maps")
+
+
+def _positive(*values) -> bool:
+    return all(np.isfinite(v) and v > 0 for v in values)
+
+
+def _measure_phase(card):
+    """Phase 16 (see the module docstring); returns the (B1, B2) launches."""
+    t_phase = time.perf_counter()
+    fast, kitti = fast_config(), kitti_config()
+    total = [0, 0]
+    modules = (odometry_module, microbench, trace_step, roofline)
+    log = lambda line: print(line, flush=True)
+
+    def run(name, cfg, kernel, fn):
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _depth_calls(*modules, names=SEARCH_NAMES) as calls:
+            out = fn()
+        torch.cuda.synchronize()
+        b1, b2, _ = _counts()
+        runs = calls[0] * _per_call(cfg)
+        want = (runs, 0) if kernel == "band" else (0, runs)
+        print(f"measure {name}: searches {calls[0]}, band-kernel launches={b1}, full-search "
+              f"launches={b2}; {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        if (b1, b2) != want:
+            raise RuntimeError(f"measure {name}: launches B1 {b1} B2 {b2}, want {want}")
+        total[0] += b1
+        total[1] += b2
+        return out
+
+    rows = run("roofline", fast, "band", lambda: roofline.rows(fast, device="cuda", log=log))
+    for r in rows:
+        gated = not r["l2_resident"]
+        print(f"measure roofline {r['name']}: {r['efficiency_pct']:.1f}% of the bound "
+              f"({'gated at 105%' if gated else 'L2-resident, not gated'}) [{card}]", flush=True)
+        if not _positive(r["measured_ms"], r["bound_ms"]) or (
+                gated and r["efficiency_pct"] > 105.0):
+            raise RuntimeError(f"roofline row {r}")
+
+    suites = run("microbench", fast, "band", lambda: microbench.run(
+        device="cuda", log=log, **MICROBENCH_CUT))
+    for suite, measured in suites.items():
+        for r in measured:
+            times = [r[k] for k in ("device_ms", "graph_ms", "busy_ms", "wall_ms") if k in r]
+            if not (_positive(*times) and r["ops"] > 0):
+                raise RuntimeError(f"microbench {suite} row {r}")
+    for N in MICROBENCH_CUT["lm_sizes"]:
+        for interp in microbench.INTERPS:
+            body = microbench.lm_body(microbench.lm_inputs(N), interp, "cuda")
+            eager = body()
+            graph, replayed = capture(body)
+            replayed.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            same = torch.equal(replayed, eager)
+            print(f"measure lm N={N} interp={interp}: one replay of the captured body gives "
+                  f"the eager delta {'bit for bit' if same else 'NOT bit for bit'} "
+                  f"(max |diff| {float((replayed - eager).abs().max())})", flush=True)
+            if not same:
+                raise RuntimeError(f"lm body N={N} {interp}: the graph's delta differs")
+
+    poses, frames = verify_mm.render_frames(fast, device="cuda")
+    r = run("verify_mm fast", fast, "band", lambda: verify_mm.track(fast, poses, frames))
+    print(f"measure verify_mm [fast/mm] frames={r['frames']} keyframes={r['keyframes']} "
+          f"failed_at={r['failed_at']} mte={r['mte']:.6f} fps={r['fps']:.1f} [{card}]",
+          flush=True)
+    verify_mm.check_fast(r)
+    k = verify_mm.KITTI_FRAMES
+    r = run("verify_mm kitti", kitti, "full",
+            lambda: verify_mm.track(kitti, poses[:k], frames[:k]))
+    print(f"measure verify_mm [parity] frames={r['frames']} mte={r['mte']:.6f}", flush=True)
+    verify_mm.check_kitti(r)
+    sampler = verify_mm.sampler_error()
+    pyramid = verify_mm.pyramid_errors(fast.camera.height, fast.camera.width)
+    print(f"measure verify_mm: mm vs gather {sampler}, pyr_down vs golden {pyramid}", flush=True)
+    verify_mm.check_invariants(sampler, pyramid)
+    print("VERIFY OK", flush=True)
+
+    for depth in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            t = run(f"trace_step{' --depth' if depth else ''}", fast, "band",
+                    lambda: trace_step.trace(fast, depth=depth, out_dir=tmp, log=log))
+        cats = dict(t["by_category"])
+        if not (t["total_ms"] > 0 and t["rows"] and cats.get("ssd", 0) > 0):
+            raise RuntimeError(f"trace_step {t['what']}: {t['total_ms']} ms, {cats}")
+
+    t0 = time.perf_counter()
+    rc = preflight.main(["--quick"])
+    print(f"measure preflight --quick: exit {rc}; {time.perf_counter() - t0:.3f} s (its bench "
+          f"runs in a process of its own: its launches are not counted here) [{card}]",
+          flush=True)
+    if rc != 0:
+        raise RuntimeError("preflight --quick is RED")
+    print(f"measure: phase 16 took {time.perf_counter() - t_phase:.3f} s (B1 {total[0]}, B2 "
+          f"{total[1]} launches) [{card}]", flush=True)
+    return tuple(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1465,6 +1542,9 @@ def main() -> int:
     band15, full15 = _diag_phase(card, seed4)
     launches["band"] += band15
     launches["full"] += full15
+    band16, full16 = _measure_phase(card)
+    launches["band"] += band16
+    launches["full"] += full16
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

@@ -37,7 +37,6 @@ from typing import Sequence
 
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from odometry_torch.config import PipelineConfig
 from odometry_torch.device import resolve_device
@@ -45,6 +44,7 @@ from odometry_torch.distributed import ring_exchange, sweep
 from odometry_torch.distributed.mesh import Mesh, sequence_mesh
 from odometry_torch.distributed.sweep import sequence_devices
 from odometry_torch.kernels import disparity_band, disparity_full
+from odometry_torch.utils.profiling import OpCounter
 
 
 def initialize_multihost(coordinator_address: str | None = None,
@@ -87,18 +87,6 @@ def stack_local_frames(frames: Sequence, mesh: Mesh) -> tuple[list, list]:
             [t(right, d) for (_, right), d in zip(frames, devs)])
 
 
-class _OpCounter(TorchDispatchMode):
-    """Counts the operators dispatched while it is active."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops += 1
-        return func(*args, **(kwargs or {}))
-
-
 def _launches() -> int:
     return disparity_band.LAUNCHES + disparity_full.LAUNCHES + ring_exchange.LAUNCHES
 
@@ -109,7 +97,7 @@ def _rank_work(states, lefts, rights, cfg: PipelineConfig, mesh: Mesh):
     returns ([device operations + kernel launches of each rank], bytes the
     health reduction moved)."""
     work = [0] * len(states)
-    counter = _OpCounter()
+    counter = OpCounter()
     bytes0 = sweep.COLLECTIVE_BYTES
     frames = zip(sweep.rank_frames(lefts, mesh), sweep.rank_frames(rights, mesh))
     with counter:

@@ -136,8 +136,10 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R (...,3,3), t (...,3)) -> homogeneous (..., 4, 4)."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    bottom = bottom.expand(R.shape[:-2] + (1, 4))
+    # Filled on the device, not copied from the host, so that a CUDA graph
+    # can capture it.
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

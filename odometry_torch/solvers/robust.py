@@ -15,8 +15,10 @@ def huber_weights(r: torch.Tensor, delta: float, valid: torch.Tensor) -> torch.T
     """w_i = 1 if |r_i| <= delta else delta/|r_i| (lm_optimizer.cpp:254)."""
     a = torch.abs(r)
     # A tensor numerator: `float / tensor` is reciprocal-then-multiply in
-    # torch, one rounding more than the reference's division.
-    w = torch.where(a <= delta, torch.ones_like(a), a.new_tensor(delta) / torch.clamp(a, min=1e-12))
+    # torch, one rounding more than the reference's division. Filled on the
+    # device (no copy from the host), so that a CUDA graph can capture it.
+    w = torch.where(a <= delta, torch.ones_like(a),
+                    torch.full_like(a, delta) / torch.clamp(a, min=1e-12))
     return w * valid.to(r.dtype)
 
 

@@ -1,4 +1,5 @@
-"""Per-stage timing and device traces (port of ``utils/profiling.py``).
+"""Per-stage timing, device traces and the card's timing primitives (port of
+``utils/profiling.py``, plus the timers of ``tools/microbench.py``).
 
 :class:`StageTimer` accumulates wall-clock spans per stage, as the
 reference's does; :func:`device_trace` records a ``torch.profiler`` trace
@@ -6,6 +7,21 @@ reference's does; :func:`device_trace` records a ``torch.profiler`` trace
 numbers PERF.md keeps from one: the traced window, the device's busy time
 (the union of its kernel intervals) and idle share, its kernel launches and
 the operations that took the most device time.
+
+The timers of one call of a function on the card, each in ms:
+
+* :func:`device_ms`: back-to-back calls behind a sleep kernel, so the host's
+  enqueue does not show;
+* :func:`graph_ms`: chained calls captured in one CUDA graph and replayed
+  (the counterpart of the reference's in-dispatch ``fori_loop``,
+  ``dev_time``): device time with no host dispatch at all;
+* :func:`busy_ms`: the union of the card's kernel intervals under the
+  profiler, for functions that read the host (neither of the two above
+  holds their device time apart from the host's pace);
+* :func:`wall_ms`: each call dispatched and synchronised (``wall_time``).
+
+:func:`count_ops` counts the operators one call dispatches. The timers need
+a card and raise without one: a host's time is never a device's.
 """
 
 from __future__ import annotations
@@ -20,6 +36,7 @@ from typing import Dict
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from odometry_torch.device import resolve_device
 
@@ -103,7 +120,9 @@ def device_trace(log_dir: str, *, device="cuda"):
     chrome://tracing) into `log_dir`.
 
     Raises when the card is asked for and CUDA activity cannot be traced,
-    rather than tracing the host alone.
+    rather than tracing the host alone. The per-operator events are built
+    only when read (``prof.events()``, :func:`trace_summary`), so a trace of
+    many steps is written without that cost.
     """
     dev = resolve_device(device)
     activities = [ProfilerActivity.CPU]
@@ -112,7 +131,7 @@ def device_trace(log_dir: str, *, device="cuda"):
             raise RuntimeError("device_trace: this torch build cannot trace CUDA activity")
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities, acc_events=True)
+    prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
         yield prof
@@ -173,3 +192,121 @@ def trace_summary(prof, top: int | None = 10) -> dict:
         "top_device_ops": [{"name": n, "count": c, "total_ms": t / 1e3}
                            for n, (c, t) in ranked],
     }
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the operators dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_ops(fn) -> int:
+    """Operators one call of `fn` dispatches (on any device)."""
+    with OpCounter() as counter:
+        fn()
+    return counter.ops
+
+
+def _require_card(name: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: needs a CUDA card; a host's time is not a device's")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn` when `reps` calls run back to back:
+    a sleep kernel keeps the card busy while the host enqueues the calls,
+    so the host's launch overhead does not show (CUDA events around the
+    calls, after the sleep). Where the calls' launches overflow the
+    CUDA launch queue the host paces the rest, so read a function of
+    many launches beside :func:`graph_ms`."""
+    _require_card("device_ms")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # Cycles at up to 2 GHz: at a lower clock the sleep only lasts longer.
+    torch.cuda._sleep(int(2e6 * (2.0 * reps * host_ms + 5.0)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def capture(fn, reps: int = 1):
+    """`reps` chained calls of `fn` captured in one ``torch.cuda.CUDAGraph``
+    after a warm-up on a side stream. Returns (graph, the last call's
+    result); each replay rewrites that result in place. `fn` must neither
+    read the host nor copy from it: the capture then raises."""
+    _require_card("capture")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `reps` chained calls captured in one
+    CUDA graph (:func:`capture`), replayed `replays` times between CUDA
+    events, per call. No host dispatch is left in it."""
+    graph, _ = capture(fn, reps)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * reps)
+
+
+def busy_ms(fn, reps: int) -> float:
+    """Device busy time of one call of `fn`: the union of the card's kernel
+    and copy intervals over `reps` calls under the profiler, per call. It
+    holds for a function that reads the host, where the card idles between
+    its launches. Reads the profiler's raw device events (building its
+    per-operator events would take minutes for a step's ~15,000 operators)."""
+    _require_card("busy_ms")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return _union_us(spans) / 1e6 / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Wall time of one call of `fn` dispatched and synchronised, the mean
+    over `reps` calls after one warm-up call."""
+    _require_card("wall_ms")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps

@@ -577,3 +577,41 @@ def test_default_sweep_is_one_rank_on_the_card(card):
     run_sweep(seqs, CFG, progress=progress)
     assert sizes == [[3]] * 6
     assert disparity_band.LAUNCHES - before == sum(runs)
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "mm"])
+def test_graph_replay_of_the_lm_body_is_eager_bit_for_bit(card, interp):
+    """The microbench's LM body (tools/microbench.py) captures in a CUDA
+    graph: one replay rewrites the eager call's delta bit for bit, and the
+    graph's time per body is a device time above 0."""
+    from odometry_torch.tools import microbench
+    from odometry_torch.utils.profiling import capture, graph_ms
+
+    body = microbench.lm_body(microbench.lm_inputs(8192), interp, card)
+    eager = body()
+    graph, replayed = capture(body)
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    assert graph_ms(body, reps=5, replays=2) > 0
+
+
+def test_device_time_is_at_most_wall_time(card):
+    from odometry_torch.tools import microbench
+    from odometry_torch.utils.profiling import device_ms, wall_ms
+
+    body = microbench.lm_body(microbench.lm_inputs(8192), "mm", card)
+    assert 0 < device_ms(body, 10) <= wall_ms(body, 10)
+
+
+def test_roofline_row_one_is_phase_fours_bound(card):
+    """Row 1 of odometry_torch/tools/roofline.py: B1 on fast_config's band
+    [12, 192] with lr at 376x1241, bound by its operations, 0.0277 ms."""
+    from odometry_torch.tools import roofline
+
+    rows = roofline.rows(device=card, reps=5, log=lambda s: None)
+    assert len(rows) == 4 and all(r["measured_ms"] > 0 for r in rows)
+    ms, by = roofline.search_bound(376, 1241, 4, 12, 192, True)
+    assert (rows[0]["bound_ms"], rows[0]["bound_by"]) == (ms, by) == (ms, "operations")
+    assert round(ms, 4) == 0.0277
