@@ -44,9 +44,11 @@ prints no result line):
 9. the all-gather kernel B3 against its plain version (the ring's schedule)
    and ``torch.cat``, bit for bit, on meshes of 1 to 8 virtual ranks of the
    card, shards of float32, float16 and int8 and at a 4-byte storage offset,
-   the full width (8 ranks of 7 x 16384 float32) 200 times back to back,
-   and the kernel, plain-version and ``torch.cat`` times beside the bound at
-   full width and above the L2 (8 ranks of 7 x 131072 float32);
+   each case in one launch and with ``force_route="per_shard"`` (one launch
+   per shard: the host side of the route across cards, its tables, offsets
+   and events), the full width (8 ranks of 7 x 16384 float32) 200 times back
+   to back, and the kernel, plain-version and ``torch.cat`` times beside the
+   bound at full width and above the L2 (8 ranks of 7 x 131072 float32);
 10. the sweep: ``run_sweep`` of fast_config over phase 5's frames (a) on
     ``sequence_mesh(3)`` (three virtual ranks of the card, one sequence
     each) and (b) on ``sequence_mesh(1)`` (one rank stepping the three as
@@ -119,7 +121,14 @@ prints no result line):
     ``trace_step`` of 21 steps and of 10 ``compute_depth`` calls (SSD
     kernels in each trace) and ``preflight --quick`` (bench in a process of
     its own); B1 once per SSD search the tools make in this process and B2
-    only in verify_mm's kitti_config run, once per frame.
+    only in verify_mm's kitti_config run, once per frame;
+17. the port on several cards, ``odometry_torch/tools/multichip.py``'s
+    (a)-(e) when 2 cards or more are visible (the sweep in one process and
+    in one process per card, the ring and sharded BA across the cards, B3
+    across cards with its times, the scaling report over the cards); with
+    one card, one line saying it did not run and why.
+
+Phases 1-16 run on the first card (``CARD``); phase 17 takes every card.
 
 Phase 3's harness also holds the tiled route of B1 and B2 (rows too wide
 for one block's shared memory, ROADMAP C10) bit for bit against the plain
@@ -184,6 +193,7 @@ from odometry_torch.tools import (
     diag_divergence,
     kernel_parity,
     microbench,
+    multichip,
     preflight,
     profile_step,
     roofline,
@@ -192,10 +202,16 @@ from odometry_torch.tools import (
     verify_mm,
 )
 from odometry_torch.tools.kernel_parity import KERNELS, KITTI, MIN_D, W_KITTI, stereo
-from odometry_torch.tools.roofline import PEAK_BYTES_PER_S, search_bound
+from odometry_torch.tools.multichip import RING_CASES, RING_REPEATS, ring_bound_ms
+from odometry_torch.tools.roofline import search_bound
 from odometry_torch.utils.checkpoint import load_pytree, save_pytree
 from odometry_torch.utils.debug import DebugCheckError
 from odometry_torch.utils.profiling import capture, device_ms
+
+# Phases 1-16 run on the first card: "cuda" with no index names every
+# visible card (ROADMAP C16), and the meshes of these phases are the
+# virtual ranks of one card. Phase 17 takes every card.
+CARD = "cuda:0"
 
 # Where the tiled route is timed beside the plain version.
 WIDE_TIMING = (376, 6000)
@@ -498,18 +514,8 @@ def _e2e_full_search(card):
     _check_state_on_card(runs[4][1], dense)
     return launches_acc + launches_kitti + launches_dense
 
-# Phase 9: (ranks, shard shape, dtype, storage offset in elements) of the
-# ring cases. The float32 ones copy in 16-byte vectors, the last of them the
-# full width, a 7-keyframe BA window of fast_config point blocks per rank (xs,
-# ys, inv_depth and intensity x 4096 lanes); a 30-byte float16 shard, a
-# 35-byte int8 shard and a float32 shard 4 bytes into its storage take the
-# kernel's byte and 4-byte paths.
-RING_CASES = ((1, (4, 128), torch.float32, 0), (2, (3, 4, 4), torch.float32, 0),
-              (3, (5, 4, 4), torch.float32, 0), (8, (4, 128), torch.float32, 0),
-              (8, (3, 4, 4), torch.float32, 0), (3, (3, 5), torch.float16, 0),
-              (8, (5, 7), torch.int8, 0), (4, (6, 33), torch.float32, 1),
-              (8, (7, 16384), torch.float32, 0))
-RING_REPEATS = 200
+# Phase 9 runs tools/multichip.py's RING_CASES and RING_REPEATS on the
+# virtual ranks of one card, each case on both routes.
 # A timing case above the 50 MB L2: 8 ranks of 7 x 131072 float32, 264 MB.
 RING_ABOVE_L2 = (8, (7, 131072))
 
@@ -534,9 +540,10 @@ def _ring_timing(shards, card, reps):
     plain_ms = device_ms(lambda: ring_exchange.ring_gather_plain(shards), 5)
     library_ms = device_ms(lambda: [torch.cat(shards) for _ in range(num)], reps)
     # Least bytes an all-gather on one card moves: every shard read once,
-    # every rank's output written once.
+    # every rank's output written once (multichip.ring_bound_ms, which also
+    # bounds the all-gather across cards by NVLink).
     moved = num * nbytes + num * num * nbytes
-    bound_ms = 1e3 * moved / PEAK_BYTES_PER_S
+    bound_ms = ring_bound_ms([s.device for s in shards], nbytes)
     print(f"timing ring ranks={num} shard={tuple(shards[0].shape)} {shards[0].dtype}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cat x{num} {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms (bytes: {moved} B), {100 * bound_ms / ms:.1f}% of it (device time "
@@ -546,15 +553,16 @@ def _ring_timing(shards, card, reps):
 
 
 def _ring_phase(card):
-    """Phase 9: B3 against its plain version and torch.cat, bit for bit;
-    RING_REPEATS back-to-back launches at full width; times at full width and
-    above the L2. Returns (full-width timing entry, [max |kernel - plain| per
-    case])."""
+    """Phase 9: B3 against its plain version and torch.cat, bit for bit, on
+    one launch and, forced with ``force_route="per_shard"``, on one launch
+    per shard (the multi-card route's host side); RING_REPEATS back-to-back
+    launches at full width; times at full width and above the L2. Returns
+    (full-width timing entry, [max |kernel - plain| per case])."""
     g = torch.Generator(device="cuda").manual_seed(9)
     errs = []
     for num, shape, dtype, offset in RING_CASES:
         shards = _ring_shards(num, shape, dtype, offset, g)
-        outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num), axis="seq")
+        outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num, CARD), axis="seq")
         torch.cuda.synchronize()
         plain = ring_exchange.ring_gather_plain(shards)
         full = torch.cat(shards)
@@ -565,6 +573,13 @@ def _ring_phase(card):
               f"max|diff|={errs[-1]}", flush=True)
         if not ok:
             raise RuntimeError(f"ring_gather differs from its plain version at {label}")
+        ok, err, launches = multichip.check_ring(shards, "per_shard")
+        errs.append(err)
+        print(f"{'PASS' if ok and launches == num else 'FAIL'}  {label} route=per_shard: "
+              f"bitwise vs plain and torch.cat, max|diff|={err}, launches {launches} (one per "
+              "shard)", flush=True)
+        if not ok or launches != num:
+            raise RuntimeError(f"ring_gather's per_shard route fails at {label}")
 
     # The full-width case (the last, whose shards these are) RING_REPEATS
     # times back to back, no host read between launches; every output is
@@ -681,8 +696,8 @@ def _sweep_phase(card, runs, single_results):
     cfg = fast_config()
     frames_per_seq = [frames for _, _, frames in runs]
     num_frames = len(frames_per_seq[0])
-    layouts = {"(a) one per rank": sequence_mesh(len(runs)),
-               "(b) one batch": sequence_mesh(1)}
+    layouts = {"(a) one per rank": sequence_mesh(len(runs), CARD),
+               "(b) one batch": sequence_mesh(1, CARD)}
     results = {name: _sweep_run(cfg, frames_per_seq, mesh) for name, mesh in layouts.items()}
     for name, mesh in layouts.items():
         r = results[name]
@@ -756,7 +771,7 @@ def _kitti_sweep(card) -> int:
     layouts = (("batched", 1), ("in turn", S), ("batched", 1))
     band_total = 0
     for name, n in layouts:
-        mesh = sequence_mesh(n)
+        mesh = sequence_mesh(n, CARD)
         health = []
         _reset_counts()
         torch.cuda.synchronize()
@@ -799,7 +814,7 @@ def _store_ba_phase(card, stores):
     if W < 2:
         raise RuntimeError(f"stores hold too few keyframes for a BA window ({W})")
     slots = [window_slots(st, W) for st in stores]
-    mesh = sequence_mesh(len(stores))
+    mesh = sequence_mesh(len(stores), CARD)
 
     _reset_counts()  # count this path's launches only
     poses = [st.pose[sl] for st, sl in zip(stores, slots)]
@@ -819,7 +834,7 @@ def _store_ba_phase(card, stores):
     if ring != 2:
         raise RuntimeError(f"ring launches on the windows: {ring}, expected 2")
 
-    model = grid_mesh(1, 8)
+    model = grid_mesh(1, 8, CARD)
     for s, (st, sl) in enumerate(zip(stores, slots)):
         problem = BAProblem(images=st.image[sl], xs=st.xs[sl], ys=st.ys[sl],
                             inv_depth=st.inv_depth[sl], intensity=st.intensity[sl],
@@ -1244,7 +1259,7 @@ def _tools_phase(card):
 
     _reset_counts()
     t0 = time.perf_counter()
-    rows = sweep_scaling_report(fast_config(), SCALING_SIZES)
+    rows = sweep_scaling_report(fast_config(), SCALING_SIZES, device=CARD)
     b, f, _ = _counts()
     band, full = band + b, full + f
     print(format_scaling_table(rows), flush=True)
@@ -1485,6 +1500,27 @@ def _measure_phase(card):
     return tuple(total)
 
 
+def _multichip_phase(card) -> int:
+    """Phase 17: ``tools/multichip.py``'s (a)-(e) on every visible card (four
+    at most) when there are 2 or more; with one card, one line saying that
+    it did not run and why. Returns B3's launches on the BA windows of (c)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"multichip: phase 17 did not run: {count} card visible, it needs 2 or more",
+              flush=True)
+        return 0
+    t_phase = time.perf_counter()
+    _reset_counts()
+    summary = multichip.run([torch.device("cuda", k) for k in range(count)])
+    band, full, ring = _counts()
+    print(f"multichip: phase 17 took {time.perf_counter() - t_phase:.3f} s on {count} cards "
+          f"(B1 {band}, B2 {full}, B3 {ring} launches) [{card}]", flush=True)
+    if band == 0 or full != 0 or summary["ring_launches_c"] == 0:
+        raise RuntimeError(f"multichip: launches B1 {band} B2 {full}, B3 on the windows "
+                           f"{summary['ring_launches_c']}")
+    return summary["ring_launches_c"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1545,6 +1581,7 @@ def main() -> int:
     band16, full16 = _measure_phase(card)
     launches["band"] += band16
     launches["full"] += full16
+    launches["ring"] += _multichip_phase(card)
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

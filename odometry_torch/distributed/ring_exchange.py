@@ -7,14 +7,18 @@ a ring in num - 1 neighbour hops, with one comm slot per step
 neighbours.
 
 :func:`ring_gather` launches ``csrc/ring_gather.cu``, the port of the TPU
-kernel ``odometry_tpu/distributed/ring_exchange.py:_ring_kernel``, for shards
-that all lie on one card. Ranks on one card share its memory, so the kernel
-has no ring: each shard is read once and written to every rank's output in
-one ordinary launch, with no comm slots and no flags. Shards on several
-devices raise (ROADMAP B3: needs a machine with two cards or more).
+kernel ``odometry_tpu/distributed/ring_exchange.py:_ring_kernel``. It has no
+ring: each shard is read once and written to every rank's output, with no
+comm slots and no flags. Shards that all lie on one card take one ordinary
+launch. Shards on several cards of one host take one launch per card that
+holds shards (:func:`launch_plan`): each pushes its card's shards into every
+rank's output, those on other cards through peer access over NVLink
+(:func:`enable_peer_access`), and CUDA events order the cards' current
+streams around the launches. No shard is ever copied to another device.
 :func:`ring_gather_plain` is the ring's schedule in plain PyTorch on a list
 of per-rank comm tensors; CPU shards take it, and on the card it serves only
-as the comparison (bit for bit: both only copy).
+as the comparison (bit for bit: both only copy). Its cross-device slot
+assignments are the cross-card copies.
 
 :func:`ring_all_gather` and :func:`gather_keyframe_poses` are the mesh-level
 entries. No TPU padding to (8, 128) tiles: the kernel moves byte slices of
@@ -70,52 +74,128 @@ def _check_shards(shards: list):
         raise ValueError("ring_gather: shards need a leading (chunk) dimension")
 
 
-def ring_gather(shards: list) -> list:
-    """All-gather per-rank shards (chunk, ...) into one (num * chunk, ...)
-    output per rank, in rank order.
+ROUTES = (None, "per_shard")
 
-    CPU shards run :func:`ring_gather_plain`. Shards on one CUDA device
-    launch the kernel on the current stream (no synchronise) and raise if
-    the launch is refused. Shards on several devices raise
-    ``NotImplementedError``; they are never copied to one device.
+
+def launch_plan(devices: list, force_route: str | None = None) -> list:
+    """The kernel launches of an all-gather of shards on `devices` (one per
+    rank, in rank order): [(card, ranks whose shards that launch pushes)],
+    one per card that holds shards, in the order of each card's first rank.
+    ``force_route="per_shard"`` makes one launch per shard, on its card: on
+    the virtual ranks of one card it runs the host side of the multi-card
+    route (its tables, offsets and events)."""
+    if force_route not in ROUTES:
+        raise ValueError(f"ring_gather: force_route {force_route!r}, one of {ROUTES}")
+    if force_route == "per_shard":
+        return [(d, (j,)) for j, d in enumerate(devices)]
+    plan: dict = {}
+    for j, d in enumerate(devices):
+        plan.setdefault(d, []).append(j)
+    return [(d, tuple(ranks)) for d, ranks in plan.items()]
+
+
+_PEERS: set = set()  # ordered (card, peer) pairs whose access is enabled
+
+
+def enable_peer_access(cards: list):
+    """Lets kernels on each of `cards` write every other's memory
+    (``cudaDeviceEnablePeerAccess``, once per ordered pair and process).
+    Raises, naming the pair, where the cards cannot reach each other or the
+    call fails."""
+    fn = None
+    for a in cards:
+        for b in cards:
+            if a == b or (a.index, b.index) in _PEERS:
+                continue
+            if fn is None:
+                from odometry_torch.kernels import _build
+
+                fn = _build.load("ring_gather").ring_gather_enable_peer
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            rc = fn(a.index, b.index)
+            if rc == -1:  # csrc/ring_gather.cu:kNoPeerAccess
+                raise RuntimeError(f"ring_gather: {a} cannot access {b}'s memory (no peer "
+                                   "access between the two cards)")
+            if rc != 0:
+                raise RuntimeError(f"ring_gather: enabling peer access from {a} to {b} "
+                                   f"failed: cudaError {rc}")
+            _PEERS.add((a.index, b.index))
+
+
+def ring_gather(shards: list, force_route: str | None = None) -> list:
+    """All-gather per-rank shards (chunk, ...) into one (num * chunk, ...)
+    output per rank, in rank order, each on its shard's device.
+
+    CPU shards run :func:`ring_gather_plain`. Shards on CUDA devices launch
+    the kernel as :func:`launch_plan` says (one launch for shards on one
+    card) on the current streams, with no synchronise, and raise if a launch
+    is refused. Across cards the call returns once every card's current
+    stream is ordered after every launch that writes its outputs; each source
+    card's stream first waits for every other card's, so outputs and shards
+    made on those streams are ready. Shards on the CPU and on a card raise;
+    they are never copied to one device.
     """
     global LAUNCHES
     _check_shards(shards)
-    devices = {s.device for s in shards}
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"ring_gather: shards on {len(devices)} devices ({sorted(map(str, devices))}); "
-            "an all-gather across cards is not ported yet (ROADMAP B3: needs a machine with "
-            "two cards or more)")
-    dev = devices.pop()
-    if dev.type == "cpu":
+    devices = [s.device for s in shards]
+    types = {d.type for d in devices}
+    if types == {"cpu"}:
         return ring_gather_plain(shards)
-    if dev.type != "cuda":
-        raise ValueError(f"ring_gather: unsupported device {dev}")
-
-    from odometry_torch.kernels import _build
+    if types != {"cuda"}:
+        raise ValueError(f"ring_gather: shards on {sorted(map(str, set(devices)))}; the "
+                         "kernel takes shards on cards only, the CPU takes the plain version")
 
     num = len(shards)
     if num > _MAX_RANKS:
         raise ValueError(f"ring_gather: {num} ranks, the kernel takes at most {_MAX_RANKS}")
+    plan = launch_plan(devices, force_route)
+    cards = list(dict.fromkeys(devices))
+    if len(cards) > 1:
+        enable_peer_access(cards)
     shards = [s.contiguous() for s in shards]
     s0 = shards[0]
     nbytes = s0.numel() * s0.element_size()
-    out = s0.new_empty((num, num * s0.shape[0]) + tuple(s0.shape[1:]))
+    shape = (num * s0.shape[0],) + tuple(s0.shape[1:])
+    if len(plan) == 1:  # one card: one tensor, a view per rank
+        out = list(s0.new_empty((num,) + shape))
+    else:
+        out = [torch.empty(shape, dtype=s0.dtype, device=d) for d in devices]
     if nbytes == 0:
-        return list(out)
-    fn = _build.load("ring_gather").ring_gather_launch
+        return out
+
+    from odometry_torch.kernels import _build
+
+    fn = _build.load("ring_gather").ring_gather_launch_ranks
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(ctypes.c_uint64)] * 2 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p]
     ptrs = lambda ts: (ctypes.c_uint64 * num)(*(t.data_ptr() for t in ts))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs(shards), ptrs(out), num, nbytes, stream)
-    if rc != 0:
-        raise RuntimeError(f"ring_gather kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return list(out)
+    local, outs = ptrs(shards), ptrs(out)
+    streams = {d: torch.cuda.current_stream(d) for d in cards}
+    # Several launches (several cards, or the per_shard route): each waits for
+    # every card's current stream, where outputs and shards were made, and
+    # every card's stream then waits for each launch, which may write its
+    # outputs or read its shards.
+    multi = len(plan) > 1
+    ready = [streams[d].record_event() for d in cards] if multi else []
+    done = []
+    for d, ranks in plan:
+        for ev in ready:
+            streams[d].wait_event(ev)
+        with torch.cuda.device(d):
+            rc = fn(local, outs, num, (ctypes.c_int * len(ranks))(*ranks), len(ranks), nbytes,
+                    streams[d].cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ring_gather kernel launch on {d} failed: cudaError {rc}")
+        LAUNCHES += 1
+        if multi:
+            done.append(streams[d].record_event())
+    for d in cards:
+        for ev in done:
+            streams[d].wait_event(ev)
+    return out
 
 
 def _shards_on_axis(x, mesh: Mesh, axis: str) -> tuple:

@@ -18,9 +18,12 @@ two views, as the reference's does:
   the busiest rank's work at the work of one rank alone, and the reduction
   at a few bytes whatever the frame size.
 - **wall-clock**: sequence-steps/s at each mesh size and its efficiency
-  against size 1. The virtual ranks of one card step in turn
-  (``sweep.batched_step``), so on one card it reads about 100/n %; across
-  ranks on separate cards it is the weak-scaling number itself.
+  against size 1. One process steps its ranks in turn
+  (``sweep.batched_step``), and each rank's LM loop reads the host, so on
+  one card it reads about 100/n %; across the cards of one process a card
+  idles while another rank's loop runs. One process per card
+  (``odometry_torch/tools/multichip.py``) gives the weak-scaling number
+  itself.
 
 Both views measure the weak-scaling layout, n sequences on n ranks, one per
 rank (a batch of 1 each). A rank's batch is one ``step_batch``, so a rank
@@ -114,35 +117,40 @@ def _rank_work(states, lefts, rights, cfg: PipelineConfig, mesh: Mesh):
 
 def sweep_scaling_report(cfg: PipelineConfig, mesh_sizes: Sequence[int], *, reps: int = 3,
                          timed: bool | None = None, device="cuda") -> list[dict]:
-    """Measure the sweep step at each mesh size on `device` (n virtual ranks
-    of it; the card unless the caller asks for the CPU); one dict per size.
+    """Measure the sweep step at each mesh size on `device`; one dict per
+    size. The mesh of size n is ``sequence_mesh(n, device)``: for "cuda"
+    the first n cards, virtual ranks spread over them past the last (n
+    virtual ranks of one card on a host with one); for a list of cards the
+    first n of them; the CPU only when the caller asks for it.
 
     At each n: scenes ``make_scene(s, depth=14.0)`` for s < n rendered at the
     identity pose, ``stack_local_frames``, ``batched_init``, one counted step
     (the analytic view), then one warm and `reps` timed ``batched_step`` s
-    from the initial states.
+    from the initial states, every card of the mesh synchronised around them.
 
     Keys: n, ops_by_rank (each rank's device operations and kernel launches
     in one step), ops_per_device (the busiest rank's), collective_bytes,
     analytic_efficiency_pct (100 x the work at n = 1 over ops_per_device),
-    and when `timed` (default: on a card, not on the CPU, where ranks share
+    and when `timed` (default: on cards, not on the CPU, where ranks share
     the host's cores) steps_per_s (sequences advanced per second) and
     wall_efficiency_pct.
     """
     from odometry_torch.camera.pinhole import Pinhole
     from odometry_torch.data.synthetic import make_scene, render_stereo
 
-    dev = resolve_device(device)
+    first = resolve_device(device[0] if isinstance(device, (list, tuple)) else device)
     if timed is None:
-        timed = dev.type == "cuda"
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+        timed = first.type == "cuda"
     c = cfg.camera
     cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
     rows: list[dict] = []
     base_work = base_rate = None
     for n in mesh_sizes:
-        mesh = sequence_mesh(n, dev)
-        frames = [render_stereo(make_scene(s, depth=14.0, device=dev), cam, c.baseline,
+        mesh = sequence_mesh(n, device)
+        devs = mesh.axis_devices("seq")
+        cards = [d for d in dict.fromkeys(devs) if d.type == "cuda"]
+        sync = lambda: [torch.cuda.synchronize(d) for d in cards]
+        frames = [render_stereo(make_scene(s, depth=14.0, device=devs[s]), cam, c.baseline,
                                 torch.eye(4), c.height, c.width)[:2] for s in range(n)]
         lefts, rights = stack_local_frames(frames, mesh)
         states = sweep.batched_init(lefts, rights, cfg, mesh)

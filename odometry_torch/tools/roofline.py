@@ -52,6 +52,8 @@ from odometry_torch.utils.profiling import graph_ms
 
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# NVLink between two H100s of one host, each way (900 GB/s both ways).
+NVLINK_BYTES_PER_S = 450e9
 L2_BYTES = 50e6
 # One (x, xr) pair's SSD over the 8-point pattern: 8 subtractions, 1
 # multiply and 7 fused multiply-adds counted as two operations each.

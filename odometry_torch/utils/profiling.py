@@ -11,7 +11,7 @@ the operations that took the most device time.
 The timers of one call of a function on the card, each in ms:
 
 * :func:`device_ms`: back-to-back calls behind a sleep kernel, so the host's
-  enqueue does not show;
+  enqueue does not show (on one card, or on several, timed on the first);
 * :func:`graph_ms`: chained calls captured in one CUDA graph and replayed
   (the counterpart of the reference's in-dispatch ``fori_loop``,
   ``dev_time``): device time with no host dispatch at all;
@@ -218,29 +218,45 @@ def _require_card(name: str) -> None:
         raise RuntimeError(f"{name}: needs a CUDA card; a host's time is not a device's")
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, cards: list | None = None) -> float:
     """Device time of one call of `fn` when `reps` calls run back to back:
     a sleep kernel keeps the card busy while the host enqueues the calls,
     so the host's launch overhead does not show (CUDA events around the
     calls, after the sleep). Where the calls' launches overflow the
     CUDA launch queue the host paces the rest, so read a function of
-    many launches beside :func:`graph_ms`."""
+    many launches beside :func:`graph_ms`.
+
+    `cards`: the cards a function runs on, when several (their current
+    streams; default the current card). CUDA events of two cards cannot be
+    subtracted, so both are on the first: behind its sleep it records the
+    start, every other card's stream waits for that start, the calls run,
+    and the first card's stream waits for every other card's finish before
+    it records the end."""
     _require_card("device_ms")
+    cards = list(dict.fromkeys(torch.device(c) for c in cards or
+                               [torch.device("cuda", torch.cuda.current_device())]))
+    sync = lambda: [torch.cuda.synchronize(c) for c in cards]
     fn()
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     fn()
-    torch.cuda.synchronize()
+    sync()
     host_ms = 1e3 * (time.perf_counter() - t0)
+    streams = [torch.cuda.current_stream(c) for c in cards]
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    # Cycles at up to 2 GHz: at a lower clock the sleep only lasts longer.
-    torch.cuda._sleep(int(2e6 * (2.0 * reps * host_ms + 5.0)))
-    a.record()
+    with torch.cuda.device(cards[0]):
+        # Cycles at up to 2 GHz: at a lower clock the sleep only lasts longer.
+        torch.cuda._sleep(int(2e6 * (2.0 * reps * host_ms + 5.0)))
+    a.record(streams[0])
+    for s in streams[1:]:
+        s.wait_event(a)
     for _ in range(reps):
         fn()
-    b.record()
-    torch.cuda.synchronize()
+    for s in streams[1:]:
+        streams[0].wait_event(s.record_event())
+    b.record(streams[0])
+    sync()
     return a.elapsed_time(b) / reps
 
 

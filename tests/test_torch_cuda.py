@@ -20,7 +20,7 @@ from odometry_torch.data.synthetic import render, tie_stereo_pair
 from odometry_torch.depth.estimator import compute_depth
 from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
-from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh
+from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh, spread
 from odometry_torch.geometry import se3_exp
 from odometry_torch.image.pyramid import gaussian_blur3
 from odometry_torch.image.sampling import clip_gather_2d
@@ -46,9 +46,23 @@ TIE_ABS, TIE_REL = 0.5, 8 * 2.0**-24
 
 @pytest.fixture
 def card():
+    """The first card ("cuda" names every visible card, ROADMAP C16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def cards():
+    """cards(c): the first c cards; skips where fewer are visible."""
+
+    def first(c):
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < c:
+            pytest.skip(f"needs {c} CUDA cards, {count} visible")
+        return [torch.device("cuda", k) for k in range(c)]
+
+    return first
 
 
 def _stereo(H, W, seed, dev):
@@ -345,7 +359,8 @@ def _ring_shards(num, shape, dtype, offset, dev, seed):
     else:
         base = [torch.randint(-128, 128, (n + offset,), generator=g).to(dtype)
                 for _ in range(num)]
-    return [b.to(dev)[offset:].view(shape) for b in base]
+    devs = dev if isinstance(dev, list) else [dev] * num
+    return [b.to(d)[offset:].view(shape) for b, d in zip(base, devs)]
 
 
 @pytest.mark.parametrize("num,shape,dtype,offset", RING_CASES)
@@ -353,7 +368,7 @@ def test_ring_kernel_matches_plain_bitwise(card, num, shape, dtype, offset):
     shards = _ring_shards(num, shape, dtype, offset, card, seed=num * 100 + shape[0])
     assert shards[0].storage_offset() == offset
     before = ring_exchange.LAUNCHES
-    outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num), axis="seq")
+    outs = ring_exchange.ring_all_gather(shards, sequence_mesh(num, card), axis="seq")
     torch.cuda.synchronize()
     assert ring_exchange.LAUNCHES == before + 1  # one launch per call
     plain = ring_exchange.ring_gather_plain(shards)
@@ -374,12 +389,90 @@ def test_ring_kernel_repeats_back_to_back(card):
     assert int(bad) == 0
 
 
+@pytest.mark.parametrize("num,shape,dtype,offset", RING_CASES)
+def test_ring_per_shard_route_matches_plain_bitwise(card, num, shape, dtype, offset):
+    """force_route="per_shard" on virtual ranks of one card: one launch per
+    shard, through the multi-card route's host code, bit for bit."""
+    shards = _ring_shards(num, shape, dtype, offset, card, seed=num * 100 + shape[0])
+    before = ring_exchange.LAUNCHES
+    outs = ring_exchange.ring_gather(shards, force_route="per_shard")
+    torch.cuda.synchronize()
+    assert ring_exchange.LAUNCHES == before + num
+    full = torch.cat(shards)
+    assert all(torch.equal(o, full) for o in outs)
+
+
+@pytest.mark.parametrize("route", [None, "per_shard"])
+@pytest.mark.parametrize("num,shape,dtype,offset", RING_CASES)
+@pytest.mark.parametrize("c", [2, 4])
+def test_ring_across_cards_matches_plain_bitwise(cards, c, num, shape, dtype, offset, route):
+    """B3 with rank r on card r * c // num (8 ranks on 4 cards: 2 each): one
+    launch per card that holds shards (per shard on that route), every
+    output on its rank's card, bit for bit against the plain version and
+    torch.cat; no shard copied."""
+    devs = spread(cards(c), num)
+    shards = _ring_shards(num, shape, dtype, offset, devs, seed=num * 100 + shape[0])
+    assert shards[-1].storage_offset() == offset
+    before = ring_exchange.LAUNCHES
+    outs = ring_exchange.ring_gather(shards, force_route=route)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    assert ring_exchange.LAUNCHES - before == len(ring_exchange.launch_plan(devs, route))
+    plain = ring_exchange.ring_gather_plain(shards)
+    for o, p, d in zip(outs, plain, devs):
+        assert o.device == d and o.dtype == dtype
+        assert torch.equal(o, p) and torch.equal(o, torch.cat([s.to(d) for s in shards]))
+
+
+def test_ring_across_cards_repeats_back_to_back(cards):
+    """200 gathers over 2 (or 4) cards with no host read between them; every
+    output of every gather is compared on its card."""
+    devs = cards(4) if torch.cuda.device_count() >= 4 else cards(2)
+    shards = [torch.randn((7, 16384), device=d) for d in devs]
+    fulls = [torch.cat([s.to(d) for s in shards]) for d in devs]
+    bad = [torch.zeros((), dtype=torch.int64, device=d) for d in devs]
+    for _ in range(200):
+        for k, (o, full) in enumerate(zip(ring_exchange.ring_gather(shards), fulls)):
+            bad[k] = bad[k] + (o != full).any()
+    assert sum(int(b) for b in bad) == 0
+
+
+def test_two_card_sweep_equals_one_card_batch(cards):
+    """run_sweep over 2 cards, 2 sequences each: each card's lanes equal the
+    same 2 sequences as one batch on the first card, bit for bit."""
+    from odometry_torch.distributed.sweep import run_sweep
+
+    devs = cards(2)
+    cam = Pinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
+    scene = make_scene(3, depth=14.0, device="cpu")
+    seqs = [[tuple(a.numpy() for a in render_stereo(scene, cam, 0.537, T, HS, WS)[:2])
+             for T in drive_trajectory(6, step=0.35, seed=seed)] for seed in (4, 5, 11, 12)]
+    both = run_sweep(seqs, CFG, sequence_mesh(device=devs))
+    for k in range(2):
+        alone = run_sweep(seqs[2 * k:2 * k + 2], CFG, sequence_mesh(device=devs[:1]))
+        np.testing.assert_array_equal(both[2 * k:2 * k + 2], alone)
+
+
+def test_sharded_ba_across_cards(card, cards):
+    """ba_solve_sharded over grid_mesh(1, 4) on 2 or 4 cards against
+    ba_solve on the first: poses 2e-4, inverse depths 1e-4."""
+    devs = spread(cards(4 if torch.cuda.device_count() >= 4 else 2), 4)
+    prob, cam = _ba_problem(card)
+    cfg = BAConfig(window=4, iters=3, fix_depths=True)
+    single = ba_solve(prob, cam, cfg)
+    sharded = ba_solve_sharded(prob, cam, grid_mesh(1, 4, devs), cfg)
+    torch.testing.assert_close(sharded.pose, single.pose, rtol=0, atol=2e-4)
+    torch.testing.assert_close(sharded.inv_depth, single.inv_depth, rtol=0, atol=1e-4)
+    assert int(sharded.num_residuals) == int(single.num_residuals)
+
+
 def test_ring_on_several_devices_raises_without_copying(card):
+    """Shards on the CPU and on a card: the kernel takes cards only."""
     shards = [torch.ones((2, 8), device=card), torch.ones((2, 8))]
     before = ring_exchange.LAUNCHES
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated()
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+    with pytest.raises(ValueError, match="cards only"):
         ring_exchange.ring_gather(shards)
     assert ring_exchange.LAUNCHES == before
     assert torch.cuda.memory_allocated() == allocated
@@ -428,7 +521,7 @@ def test_sharded_ba_on_the_card(card, fix_depths):
     prob, cam = _ba_problem(card)
     cfg = BAConfig(window=4, iters=3, fix_depths=fix_depths)
     single = ba_solve(prob, cam, cfg)
-    sharded = ba_solve_sharded(prob, cam, grid_mesh(1, 8), cfg)
+    sharded = ba_solve_sharded(prob, cam, grid_mesh(1, 8, card), cfg)
     assert sharded.pose.is_cuda and sharded.inv_depth.is_cuda
     torch.testing.assert_close(sharded.pose, single.pose, rtol=0, atol=2e-4)
     torch.testing.assert_close(sharded.inv_depth, single.inv_depth, rtol=0, atol=1e-4)
@@ -556,12 +649,13 @@ def test_bench_gate_and_line_on_the_card(card):
 
 
 def test_default_sweep_is_one_rank_on_the_card(card):
-    """sequence_mesh() on the card is one rank, and run_sweep without a
-    mesh steps the three sequences as one batch: one B1 launch per batched
-    depth run (ROADMAP C14)."""
+    """sequence_mesh() has one rank per visible card (ROADMAP C16), and on
+    one card run_sweep without a mesh steps the three sequences as one
+    batch: one B1 launch per batched depth run (ROADMAP C14)."""
     from odometry_torch.distributed.sweep import run_sweep
 
-    assert sequence_mesh().shape == {"seq": 1}
+    assert sequence_mesh().shape == {"seq": torch.cuda.device_count()}
+    assert sequence_mesh(device=card).shape == {"seq": 1}
     cam = Pinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
     scene = make_scene(3, depth=14.0, device="cpu")
     seqs = [[tuple(a.numpy() for a in render_stereo(scene, cam, 0.537, T, HS, WS)[:2])
@@ -574,7 +668,7 @@ def test_default_sweep_is_one_rank_on_the_card(card):
                                           | (outs[0].summary[:, 34] < 0.5)).any()))
 
     before = disparity_band.LAUNCHES
-    run_sweep(seqs, CFG, progress=progress)
+    run_sweep(seqs, CFG, device=card, progress=progress)
     assert sizes == [[3]] * 6
     assert disparity_band.LAUNCHES - before == sum(runs)
 
