@@ -126,9 +126,26 @@ prints no result line):
     (a)-(e) when 2 cards or more are visible (the sweep in one process and
     in one process per card, the ring and sharded BA across the cards, B3
     across cards with its times, the scaling report over the cards); with
-    one card, one line saying it did not run and why.
+    one card, one line saying it did not run and why; with several cards
+    also (b) on the global mesh and (c)/(d) across one process per card;
+18. the port across processes on one card: two processes of
+    ``tools/multichip.py`` share it (a gloo group; B3 between them through
+    CUDA IPC), each running ``run_sweep`` of 2 driving sequences (seeds 0, 1
+    and 2, 3; 49 frames at 376x1241, fast_config) on the global
+    ``sequence_mesh()`` of 2 ranks, then B3 across them on phase 11's window
+    poses and point blocks, every phase-9 ring case of 2 ranks or more, 200
+    gathers with ``torch.cuda.empty_cache()`` after every 7th, and
+    ``ba_solve_sharded`` over ``grid_mesh(1, 2)`` on phase 11's first store
+    (motion-only and free depths); gated on each process's lanes equal to
+    one process's run of the same sequences on ``sequence_mesh(2)``, B3 bit
+    for bit against plain and ``torch.cat``, the sharded BA equal to one
+    process's over 2 ranks, bit for bit, and the children's B1 and B3
+    launches (added to the kernels line); times per gather across the
+    processes at 2 x (7, 16384) and 2 x (7, 131072) float32 beside the
+    bound and the same gather in one process.
 
-Phases 1-16 run on the first card (``CARD``); phase 17 takes every card.
+Phases 1-16 and 18 run on the first card (``CARD``); phase 17 takes every
+card.
 
 Phase 3's harness also holds the tiled route of B1 and B2 (rows too wide
 for one block's shared memory, ROADMAP C10) bit for bit against the plain
@@ -1501,9 +1518,12 @@ def _measure_phase(card):
 
 
 def _multichip_phase(card) -> int:
-    """Phase 17: ``tools/multichip.py``'s (a)-(e) on every visible card (four
-    at most) when there are 2 or more; with one card, one line saying that
-    it did not run and why. Returns B3's launches on the BA windows of (c)."""
+    """Phase 17: ``tools/multichip.py``'s (a)-(e), (b) on the global mesh and
+    (c)/(d) across processes on every visible card (four at most) when there
+    are 2 or more; with one card, one line saying that it did not run and
+    why. Returns B3's launches on the BA windows of (c) in this process and
+    those of the processes of (c)/(d) on their windows and in their sharded
+    BA (their ring cases, repeats and timing calls are left out)."""
     count = torch.cuda.device_count()
     if count < 2:
         print(f"multichip: phase 17 did not run: {count} card visible, it needs 2 or more",
@@ -1513,12 +1533,115 @@ def _multichip_phase(card) -> int:
     _reset_counts()
     summary = multichip.run([torch.device("cuda", k) for k in range(count)])
     band, full, ring = _counts()
+    across = summary["across_processes"]["path_ring_launches"]
     print(f"multichip: phase 17 took {time.perf_counter() - t_phase:.3f} s on {count} cards "
-          f"(B1 {band}, B2 {full}, B3 {ring} launches) [{card}]", flush=True)
-    if band == 0 or full != 0 or summary["ring_launches_c"] == 0:
+          f"(B1 {band}, B2 {full}, B3 {ring} launches in this process; in the processes of "
+          f"(c)/(d) B3 {across} on the windows and BA, "
+          f"{summary['across_processes']['ring_launches']} in all) [{card}]", flush=True)
+    if band == 0 or full != 0 or summary["ring_launches_c"] == 0 or across == 0:
         raise RuntimeError(f"multichip: launches B1 {band} B2 {full}, B3 on the windows "
-                           f"{summary['ring_launches_c']}")
-    return summary["ring_launches_c"]
+                           f"{summary['ring_launches_c']}, across processes {across}")
+    return summary["ring_launches_c"] + across
+
+
+# Phase 18: two processes share the card; each sweeps two driving sequences.
+PHASE18_SEEDS = ((0, 1), (2, 3))
+
+
+def _host_ms(fn, reps):
+    """Host time of one of `reps` back-to-back calls after a warm one, the
+    card synchronised at the end (as multichip times a gather across
+    processes)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _multiprocess_phase(card, stores) -> tuple:
+    """Phase 18: two processes of tools/multichip.py on the card (a gloo
+    group, B3 between them through CUDA IPC), each sweeping its two
+    sequences on the global mesh, then B3 and sharded BA across them
+    (``multichip.cross_process_job`` on phase 11's stores); held to one
+    process's runs. Returns the children's launches of B1 and of B3 on the
+    windows and in sharded BA (their ring cases, repeats and timing calls
+    are left out)."""
+    t_phase = time.perf_counter()
+    cfg = fast_config()
+    c = cfg.camera
+    job = multichip.cross_process_job(stores, cfg, 2)
+    t0 = time.perf_counter()
+    recs = multichip.per_process([list(s) for s in PHASE18_SEEDS], multichip.NUM_FRAMES,
+                                 cards=[0, 0], job=job, timeout=300)
+    children_s = time.perf_counter() - t0
+    band = sum(int(r["band_launches"]) for r in recs)
+    ring = sum(int(r["path_ring_launches"]) for r in recs)
+    ring_all = sum(int(r["ring_launches"]) for r in recs)
+
+    # One process: the four sequences on sequence_mesh(2), rank k's batch
+    # the sequences of process k.
+    seeds = [s for group in PHASE18_SEEDS for s in group]
+    runs = multichip.driving_runs(seeds, multichip.NUM_FRAMES, cfg, CARD)
+    _reset_counts()
+    one = multichip.sweep_run([f for _, f in runs], cfg, sequence_mesh(2, CARD))
+    band_one = _counts()[0]
+    multichip._gate_run("multiprocess: one process", one, [t for t, _ in runs])
+    for k, r in enumerate(recs):
+        lanes = slice(2 * k, 2 * k + 2)
+        same = (np.array_equal(r["poses"], one["poses"][lanes]) and bool(r["health"].all())
+                and [multichip.keyframe_ids(r["promoted"][:, s]) for s in range(2)] ==
+                one["keyframes"][lanes])
+        rate = 2 * (multichip.NUM_FRAMES - 1) / float(r["seconds"])
+        print(f"{'PASS' if same else 'FAIL'}  multiprocess: process {k} of 2 on {CARD}, "
+              f"sequences {PHASE18_SEEDS[k]} x {multichip.NUM_FRAMES} frames at {c.height}x"
+              f"{c.width} on the global sequence_mesh() (2 ranks): poses and keyframes equal "
+              f"one process's rank {k} of sequence_mesh(2), bit for bit; global_ok on "
+              f"{int(r['health'].sum())}/{len(r['health'])} frames; {rate:.3f} sequence-frames/s "
+              f"({float(r['seconds']):.3f} s), B1 {int(r['sweep_band'])} launches [{card}]",
+              flush=True)
+        if not same:
+            raise RuntimeError(f"multiprocess: process {k}'s lanes differ from one process's")
+    sweep_band = sum(int(r["sweep_band"]) for r in recs)
+    if sweep_band != band_one or band_one == 0:
+        raise RuntimeError(f"multiprocess: B1 launches of the sweeps {sweep_band}, one process "
+                           f"{band_one}")
+
+    # B3 and BA across the two processes against one process.
+    b = job["ba"]
+    problem = BAProblem(*(t.to(CARD) for t in b["problem"]))
+    cam = Pinhole.create(*b["camera"])
+    ba_one = {fix: ba_solve_sharded(problem, cam, grid_mesh(1, 2, CARD),
+                                    BAConfig(iters=b["iters"], fix_depths=fix,
+                                             window=problem.xs.shape[0]))
+              for fix in (True, False)}
+    times = multichip.check_job(recs, job, ba_one, "multiprocess",
+                                lambda line: print(line, flush=True))
+    for shape in multichip.RING_TIMING:
+        label = "x".join(map(str, shape))
+        shards = [torch.randn(shape, device=CARD) for _ in range(2)]
+        one_ms = device_ms(lambda: ring_exchange.ring_gather(shards), 50)
+        one_wall = _host_ms(lambda: ring_exchange.ring_gather(shards), 200)
+        nbytes = shards[0].numel() * 4
+        bound = ring_bound_ms([s.device for s in shards], nbytes)
+        print(f"timing ring across 2 processes of {CARD}, one shard {shape} float32 each: "
+              f"{times[f'time_{label}_ms']:.4f} ms per gather (host time of back-to-back "
+              f"gathers, the slower process; two host steps each), bound {bound:.4f} ms "
+              f"((2 + 4) x {nbytes} B at 3.35 TB/s); the same gather in one process (2 virtual "
+              f"ranks, one launch): {one_ms:.4f} ms device time of back-to-back calls, "
+              f"{one_wall:.4f} ms host time [{card}]", flush=True)
+    print(f"multiprocess: the two host steps of a gather alone on its board "
+          f"{times['time_board_ms']:.4f} ms, one gloo barrier {times['time_gloo_barrier_ms']:.4f} "
+          f"ms (host time of 200 back-to-back, the slower process) [{card}]", flush=True)
+    print(f"multiprocess: phase 18 took {time.perf_counter() - t_phase:.3f} s (the two "
+          f"processes {children_s:.3f} s; their B1 {band} launches, B3 {ring} on the windows "
+          f"and BA, {ring_all} with the ring cases, repeats and timing) [{card}]",
+          flush=True)
+    if band == 0 or ring == 0:
+        raise RuntimeError(f"multiprocess: the children launched B1 {band}, B3 {ring} times")
+    return band, ring
 
 
 def main() -> int:
@@ -1582,6 +1705,9 @@ def main() -> int:
     launches["band"] += band16
     launches["full"] += full16
     launches["ring"] += _multichip_phase(card)
+    band18, ring18 = _multiprocess_phase(card, stores)
+    launches["band"] += band18
+    launches["ring"] += ring18
 
     sources = {
         "band": ("disparity_band", "odometry_torch/csrc/disparity_band.cu",

@@ -40,13 +40,27 @@
 // last whole vector goes in bytes. Each thread loads kVec vectors before it
 // stores them, so several loads are in flight.
 //
+// Across processes of one host the kernel is the same push: each process
+// launches once per card it holds, and the outputs of other processes' ranks
+// are pointers into their allocations, opened here through CUDA IPC
+// (ring_gather_ipc_export / _open / _close below; two processes on one card
+// need no peer access, two cards take it lazily when the handle opens). The
+// wrapper orders the processes' streams with interprocess events behind host
+// barriers.
+//
 // The per-rank pointers (shards, outputs, on this card or a peer) and the
 // launch's source ranks travel as one table in the kernel's parameters
 // (constant bank, __grid_constant__: indexed in place, never copied to local
 // memory).
 
+#include <cuda.h>  // the driver's types only: cuPointerGetAttributes is found with dlsym
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+#include <unordered_map>
 
 namespace {
 
@@ -55,6 +69,9 @@ constexpr int kMaxRanks = 64;
 constexpr int kVec = 2;                         // vectors per thread per round
 constexpr long long kSlice = 16LL * kThreads * kVec;  // bytes of a shard per block
 constexpr int kNoPeerAccess = -1;               // ring_gather_enable_peer: not possible
+constexpr int kNoDriver = -2;      // ring_gather_ipc_export: no cuPointerGetAttribute
+constexpr int kNotIpcCapable = -3;  // ring_gather_ipc_export: not legacy-IPC memory
+constexpr int kDriverError = -1000;  // ring_gather_ipc_export: kDriverError - CUresult
 
 struct RankTable {
   const char* local[kMaxRanks];
@@ -164,4 +181,88 @@ extern "C" int ring_gather_enable_peer(int dev, int peer) {
   }
   const cudaError_t back = cudaSetDevice(prev);
   return static_cast<int>(err != cudaSuccess ? err : back);
+}
+
+// ---------------------------------------------------------------- CUDA IPC
+
+namespace {
+
+typedef CUresult (*PointerAttributesFn)(unsigned int, CUpointer_attribute*, void**, CUdeviceptr);
+
+PointerAttributesFn pointer_attributes() {
+  static const PointerAttributesFn fn = []() -> PointerAttributesFn {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<PointerAttributesFn>(dlsym(lib, "cuPointerGetAttributes"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The handles exported so far, by buffer id (ids are never reused, so an
+// entry never goes stale; a freed allocation's stays, 64 bytes).
+std::mutex exported_mutex;
+std::unordered_map<unsigned long long, cudaIpcMemHandle_t> exported;
+
+}  // namespace
+
+// Exports, for other processes, the allocation that holds device pointer
+// `ptr` (PyTorch's caching allocator sub-allocates, and a handle names a
+// whole allocation): writes its legacy IPC handle (64 bytes) to `handle` and
+// [ptr's byte offset in it, its base address, its size, its buffer id] to
+// `info`. The buffer id is unique in this process for as long as it runs,
+// never reused by a later allocation at the same address; an allocation's
+// handle is asked of the runtime once. Returns 0, kNoDriver, kNotIpcCapable
+// (memory that legacy IPC cannot export, as expandable segments are),
+// kDriverError - CUresult, or the cudaError_t of cudaIpcGetMemHandle.
+extern "C" int ring_gather_ipc_export(unsigned long long ptr, unsigned char* handle,
+                                      unsigned long long* info) {
+  const PointerAttributesFn attrs = pointer_attributes();
+  if (attrs == nullptr) return kNoDriver;
+  unsigned int capable = 0;
+  CUdeviceptr base = 0;
+  size_t size = 0;
+  unsigned long long buffer_id = 0;
+  CUpointer_attribute which[4] = {CU_POINTER_ATTRIBUTE_IS_LEGACY_CUDA_IPC_CAPABLE,
+                                  CU_POINTER_ATTRIBUTE_RANGE_START_ADDR,
+                                  CU_POINTER_ATTRIBUTE_RANGE_SIZE,
+                                  CU_POINTER_ATTRIBUTE_BUFFER_ID};
+  void* data[4] = {&capable, &base, &size, &buffer_id};
+  const CUresult res = attrs(4, which, data, ptr);
+  if (res != CUDA_SUCCESS) return kDriverError - static_cast<int>(res);
+  if (!capable) return kNotIpcCapable;
+  cudaIpcMemHandle_t h;
+  {
+    std::lock_guard<std::mutex> lock(exported_mutex);
+    auto it = exported.find(buffer_id);
+    if (it == exported.end()) {
+      const cudaError_t err = cudaIpcGetMemHandle(&h, reinterpret_cast<void*>(base));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      exported.emplace(buffer_id, h);
+    } else {
+      h = it->second;
+    }
+  }
+  memcpy(handle, &h, sizeof(h));
+  info[0] = ptr - base;
+  info[1] = base;
+  info[2] = size;
+  info[3] = buffer_id;
+  return 0;
+}
+
+// Opens another process's allocation (its handle from ring_gather_ipc_export)
+// on the current card, enabling peer access lazily where it lies on another
+// card; writes the base pointer here to `ptr`. Returns the cudaError_t.
+extern "C" int ring_gather_ipc_open(const unsigned char* handle, unsigned long long* ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  void* p = nullptr;
+  const cudaError_t err = cudaIpcOpenMemHandle(&p, h, cudaIpcMemLazyEnablePeerAccess);
+  *ptr = reinterpret_cast<unsigned long long>(p);
+  return static_cast<int>(err);
+}
+
+// Closes a pointer that ring_gather_ipc_open returned. Returns the cudaError_t.
+extern "C" int ring_gather_ipc_close(unsigned long long ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(reinterpret_cast<void*>(ptr)));
 }

@@ -19,14 +19,17 @@ of cards, then runs, each part raising where a gate fails:
     batch on the first card, bit for bit (poses and keyframes). Reported:
     sequence-frames/s (init and steps, host clock, every card synchronised)
     and peak memory per card;
-(b) one process per card, the same n and sequences: each process sees one
-    card (``CUDA_VISIBLE_DEVICES``), joins an NCCL group through
-    ``initialize_multihost``, renders its own sequences from their seeds and
-    runs ``run_sweep`` on its default mesh. Gates: every process exits 0,
-    ``global_ok`` (the ``all_reduce`` of every process) on every frame, poses
-    equal to (a)'s, bit for bit. Reported: wall sequence-frames/s, all
-    sequence-frames over the slowest process's time between two barriers.
-    Then the KITTI sweep's 22 sequences (49 frames) on 2 cards, 11 each;
+(b) one process per card, the same n and sequences: process k owns card k
+    (every card stays visible to every process, as CUDA IPC needs), joins
+    the group through ``initialize_multihost`` (NCCL for the health
+    reduction, each process owning its card), renders its own sequences
+    from their seeds and runs ``run_sweep`` on the global
+    ``sequence_mesh()``, one rank per process. Gates: every process exits
+    0, ``global_ok`` (reduced over every process) on every frame, poses
+    equal to (a)'s, bit for bit; at n >= 2 the ring cases of (d) across the
+    processes. Reported: wall sequence-frames/s, all sequence-frames over
+    the slowest process's time between two barriers. Then the KITTI sweep's
+    22 sequences (49 frames) on 2 cards, 11 each;
 (c) a keyframe store per card, filled from (a)'s batches as ``run_slam``
     fills one: the ring across the cards on their BA windows' poses and point
     blocks (bit for bit against ``ring_gather_plain`` and ``torch.cat``, one
@@ -40,12 +43,22 @@ of cards, then runs, each part raising where a gate fails:
     compared on the cards; times at 4 x (7, 16384) and 4 x (7, 131072)
     float32 against the bound and ``torch.cuda.comm.gather`` to every card;
 (e) ``sweep_scaling_report(fast_config(), [1, 2, 4], device=<the cards>)``:
-    analytic efficiency >= 80%, 0 < collective bytes < 4096.
+    analytic efficiency >= 80%, 0 < collective bytes < 4096;
+(c) and (d) across processes, one process per card (``run_job``): the ring
+    across the processes on the first stores' window poses and point blocks
+    (one per process), ``ba_solve_sharded`` over ``grid_mesh(1, 4)`` across
+    them, bit for bit against one process's over 4 ranks of the cards
+    (motion-only and free depths), every ring case of 4 ranks or more across
+    the processes bit for bit (one launch per process), 200 back-to-back
+    gathers with ``torch.cuda.empty_cache()`` between some, and the host
+    time per gather at 4 x (7, 16384) and 4 x (7, 131072) float32 beside
+    the bound and NCCL's ``all_gather_into_tensor``.
 
 ``--rehearse`` runs the same code where only one card is visible, on
 virtual ranks of it (the per-process layout only for n = 1, where each
-process has a card of its own), to find faults before a run on several
-cards; its numbers are not the cards'. :func:`dryrun_multichip` is the
+process has a card of its own; the four processes across which (c) and (d)
+run share the card), to find faults before a run on several cards; its
+numbers are not the cards'. :func:`dryrun_multichip` is the
 reference's function, on n cards or n virtual CPU ranks.
 """
 
@@ -81,9 +94,11 @@ from odometry_torch.device import card_line, resolve_device
 from odometry_torch.distributed import ring_exchange, sweep
 from odometry_torch.distributed.ba_dist import ba_solve_sharded
 from odometry_torch.distributed.mesh import Mesh, grid_mesh, sequence_mesh, spread
+from odometry_torch.distributed.mesh import world as mesh_world
 from odometry_torch.distributed.scaling import (
     format_scaling_table,
     initialize_multihost,
+    shutdown_multihost,
     sweep_scaling_report,
 )
 from odometry_torch.eval.metrics import mean_translation_error
@@ -324,29 +339,35 @@ def _free_port() -> int:
 
 
 def per_process(seed_groups: list, num_frames: int, *, device="cuda", config="fast",
-                timeout: float = 900.0) -> list:
-    """One process per group of seeds, process k on card k (``device`` "cuda")
-    or on the CPU (one torch thread each), joined in one process group; each
-    runs :func:`worker`. Returns each process's record: poses (S_k, F, 4, 4),
-    promoted (F - 1, S_k), health (F,), seconds between its barriers, peak
-    memory above what it held before (GiB, 0 on the CPU)."""
+                timeout: float = 900.0, cards: list | None = None, job: dict | None = None) -> list:
+    """One process per group of seeds, joined in one process group through
+    ``initialize_multihost``, each running :func:`worker`: process k on card
+    ``cards[k]`` (default k; every card stays visible to every process, as
+    CUDA IPC between them needs, so a card may hold several processes) for
+    ``device`` "cuda", or one CPU rank (one torch thread) each. An empty
+    group runs no sweep; `job` holds the parts across processes
+    (:func:`run_job`). Returns each process's record: with seeds, poses
+    (S_k, F, 4, 4), promoted (F - 1, S_k), health (F,), seconds between its
+    barriers, peak memory above what it held before (GiB, 0 on the CPU);
+    the job's results; and the B1 and B3 launches it made."""
     n = len(seed_groups)
     root = Path(__file__).resolve().parents[2]
     port = _free_port()
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    ids = visible.split(",") if visible else [str(k) for k in range(n)]
+    cuda = resolve_device(device).type == "cuda"
+    cards = list(range(n)) if cards is None else cards
     with tempfile.TemporaryDirectory(prefix="multichip_") as tmp:
+        job_path = os.path.join(tmp, "job.pt")
+        torch.save(job or {}, job_path)
         procs = []
         for rank, seeds in enumerate(seed_groups):
-            env = dict(os.environ, PYTHONPATH=str(root))
-            if resolve_device(device).type == "cuda":
-                env["CUDA_VISIBLE_DEVICES"] = ids[rank]
             args = [sys.executable, "-m", "odometry_torch.tools.multichip", "--worker",
                     str(rank), str(n), str(port), os.path.join(tmp, f"rank{rank}.npz"),
                     "--seeds", ",".join(map(str, seeds)), "--frames", str(num_frames),
-                    "--config", config, "--device", str(device)]
-            procs.append(subprocess.Popen(args, cwd=root, env=env, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True))
+                    "--config", config, "--device", "cuda" if cuda else "cpu",
+                    "--card", str(cards[rank]), "--job", job_path]
+            procs.append(subprocess.Popen(args, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
         outs = []
         try:
             for p in procs:
@@ -367,59 +388,289 @@ def per_process(seed_groups: list, num_frames: int, *, device="cuda", config="fa
 
 
 def _barrier(dev):
-    t = torch.ones(1, device=dev)
-    dist.all_reduce(t)
+    """Every process here, and this process's card idle."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    dist.barrier()
 
 
 def worker(rank: int, world: int, port: int, out: str, seeds: list, num_frames: int, *,
-           config="fast", device="cuda") -> int:
-    """One process of :func:`per_process`: joins the group, renders its
-    sequences on its device, warms up on their first 3 frames, then runs
-    ``run_sweep`` on its default mesh between two barriers and saves its
-    record to `out`."""
+           config="fast", device="cuda", card: int = 0, job: dict | None = None) -> int:
+    """One process of :func:`per_process`: joins the group with its card
+    (or one CPU rank), then on the global ``sequence_mesh()`` (one rank per
+    process) renders its sequences on its device, warms up on their first 3
+    frames and runs ``run_sweep`` between two barriers; then `job`'s parts
+    (:func:`run_job`). Saves its record to `out`."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         torch.set_num_threads(1)
     else:
-        torch.cuda.set_device(0)
-        dev = torch.device("cuda", 0)
+        dev = torch.device("cuda", card)
     initialize_multihost(f"localhost:{port}", world, rank, device=dev)
     try:
-        cfg = CONFIGS[config]()
-        frames = [f for _, f in driving_runs(seeds, num_frames, cfg, dev)]
-        sweep.run_sweep([f[:3] for f in frames], cfg, device=dev)
-        health, promoted = [], []
+        disparity_band.LAUNCHES = ring_exchange.LAUNCHES = 0
+        mesh = sequence_mesh(device=dev.type)
+        record = {}
+        if seeds:
+            cfg = CONFIGS[config]()
+            frames = [f for _, f in driving_runs(seeds, num_frames, cfg, dev)]
+            sweep.run_sweep([f[:3] for f in frames], cfg, mesh)
+            health, promoted = [], []
 
-        def progress(i, states, outs, global_ok):
-            health.append(global_ok)
-            if outs is not None:
-                promoted.append(outs[0].promoted)
+            def progress(i, states, outs, global_ok):
+                health.append(global_ok)
+                if outs is not None:
+                    promoted.append(outs[0].promoted)
 
-        _barrier(dev)
-        if dev.type == "cuda":
-            held = torch.cuda.memory_allocated(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        poses = sweep.run_sweep(frames, cfg, device=dev, progress=progress)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - t0
-        peak = ((torch.cuda.max_memory_allocated(dev) - held) / 2**30
-                if dev.type == "cuda" else 0.0)
-        _barrier(dev)
-        np.savez(out, poses=poses, health=np.array([bool(h) for h in health]),
-                 promoted=torch.stack(promoted).cpu().numpy(), seconds=seconds, peak_gib=peak)
+            _barrier(dev)
+            if dev.type == "cuda":
+                held = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            band = disparity_band.LAUNCHES
+            t0 = time.perf_counter()
+            poses = sweep.run_sweep(frames, cfg, mesh, progress=progress)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            peak = ((torch.cuda.max_memory_allocated(dev) - held) / 2**30
+                    if dev.type == "cuda" else 0.0)
+            _barrier(dev)
+            record.update(poses=poses, health=np.array([bool(h) for h in health]),
+                          promoted=torch.stack(promoted).cpu().numpy(), seconds=seconds,
+                          peak_gib=peak, sweep_band=disparity_band.LAUNCHES - band)
+        record.update(run_job(job or {}, dev))
+        record.update(band_launches=disparity_band.LAUNCHES, ring_launches=ring_exchange.LAUNCHES)
+        np.savez(out, **record)
     finally:
-        dist.destroy_process_group()
+        shutdown_multihost()
     return 0
+
+
+# ------------------------------------------- (c), (d) across the processes
+
+
+def _seeded_shards(num: int, shape, dtype, offset: int, seed: int, dev) -> list:
+    """`num` shards of `shape` on `dev`, `offset` elements into their
+    storage, made on the CPU from `seed` (every process makes the same)."""
+    g = torch.Generator().manual_seed(seed)
+    n = int(np.prod(shape))
+    base = [torch.randn(n + offset, generator=g).to(dtype) if dtype.is_floating_point else
+            torch.randint(-128, 128, (n + offset,), generator=g).to(dtype) for _ in range(num)]
+    return [b.to(dev)[offset:].view(shape) for b in base]
+
+
+def _check_across(everyone: list, mesh: Mesh, dev) -> tuple:
+    """One ``ring_all_gather`` across the processes of this process's shards
+    of `everyone` (every rank's shards, on `dev`) over `mesh`, against the
+    plain ring of all of them and ``torch.cat``, bit for bit. Returns (ok,
+    max |kernel - plain|, launches)."""
+    before = ring_exchange.LAUNCHES
+    outs = ring_exchange.ring_all_gather([everyone[r] for r in mesh.local_ranks()], mesh,
+                                         axis="seq")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = ring_exchange.LAUNCHES - before
+    plain = ring_exchange.ring_gather_plain(everyone)[0]
+    full = torch.cat(everyone)
+    ok = all(torch.equal(o, plain) and torch.equal(o, full) for o in outs)
+    err = max(float((o.double() - plain.double()).abs().max()) if o.numel() else 0.0
+              for o in outs)
+    return ok, err, launches
+
+
+def _wall_ms(fn, reps: int, dev) -> float:
+    """Host time of one of `reps` back-to-back calls of `fn`, every process
+    starting together after a warm call and this card synchronised at the
+    end."""
+    fn()
+    _barrier(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    _barrier(dev)
+    return ms
+
+
+def run_job(job: dict, dev) -> dict:
+    """The parts across processes, in every process of the group alike;
+    returns this process's results (numpy values), with the B3 launches of
+    the windows and BA (the path's work) as "path_ring_launches".
+
+    - "windows": {"poses", "blocks"}, every rank's (W, ...) window shards
+      (one rank per process): the ring across the processes on them;
+    - "ba": {"problem" (BAProblem fields), "camera" (fx, fy, cx, cy),
+      "iters"}: ``ba_solve_sharded`` over ``grid_mesh(1, processes)``,
+      motion-only and with free depths;
+    - "ring_cases": [(ranks, shape, dtype, offset)], ranks at least the
+      processes, spread over them in order: the ring across processes, bit
+      for bit against the plain ring and ``torch.cat``;
+    - "ring_repeats": (count, every, shape): `count` gathers of one shard per
+      process back to back, ``torch.cuda.empty_cache()`` after every
+      `every`-th, each compared on the device;
+    - "ring_timing": [(shape, reps)]: host time per gather of one float32
+      shard per process, and of NCCL's ``all_gather_into_tensor`` where the
+      group's device collectives run over NCCL; on cards also the gather's
+      two host steps alone on its board, and one gloo barrier.
+    """
+    w = mesh_world()
+    res = {}
+    mesh = sequence_mesh(device=dev.type)
+    before = ring_exchange.LAUNCHES
+    if "windows" in job:
+        for name in ("poses", "blocks"):
+            ok, err, launches = _check_across([t.to(dev) for t in job["windows"][name]], mesh,
+                                              dev)
+            res.update({f"windows_{name}_ok": ok, f"windows_{name}_err": err,
+                        f"windows_{name}_launches": launches})
+    if "ba" in job:
+        b = job["ba"]
+        problem = BAProblem(*(t.to(dev) for t in b["problem"]))
+        cam = Pinhole.create(*b["camera"])
+        for fix in (True, False):
+            r = ba_solve_sharded(problem, cam, grid_mesh(1, w.size, dev.type),
+                                 BAConfig(iters=b["iters"], fix_depths=fix,
+                                          window=problem.xs.shape[0]))
+            for k in ("pose", "inv_depth", "cost_initial", "cost_final", "num_residuals"):
+                res[f"ba_{int(fix)}_{k}"] = getattr(r, k).cpu().numpy()
+    res["path_ring_launches"] = ring_exchange.LAUNCHES - before  # the windows' and BA's
+    for i, (num, shape, dtype, offset) in enumerate(job.get("ring_cases", ())):
+        everyone = _seeded_shards(num, shape, dtype, offset, 100 + i, dev)
+        ok, err, launches = _check_across(everyone, sequence_mesh(num, dev.type), dev)
+        res.update({f"case{i}_ok": ok, f"case{i}_err": err, f"case{i}_launches": launches})
+    if "ring_repeats" in job:
+        count, every, shape = job["ring_repeats"]
+        everyone = _seeded_shards(w.size, shape, torch.float32, 0, 99, dev)
+        full = torch.cat(everyone)
+        mine = [everyone[r] for r in mesh.local_ranks()]
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for k in range(count):
+            for o in ring_exchange.ring_all_gather(mine, mesh, axis="seq"):
+                bad = bad + (o != full).any()
+            if every and k % every == every - 1:
+                torch.cuda.empty_cache()
+        res["repeats_bad"] = int(bad)
+    for shape, reps in job.get("ring_timing", ()):
+        mine = [torch.randn(shape, device=dev) for _ in mesh.local_ranks()]
+        label = "x".join(map(str, shape))
+        res[f"time_{label}_ms"] = _wall_ms(
+            lambda: ring_exchange.ring_all_gather(mine, mesh, axis="seq"), reps, dev)
+        if w.backend == "nccl":
+            out = torch.empty((w.size * shape[0],) + tuple(shape[1:]), device=dev)
+            res[f"time_{label}_nccl_ms"] = _wall_ms(
+                lambda: dist.all_gather_into_tensor(out, mine[0], group=w.device_group), reps, dev)
+    if job.get("ring_timing") and dev.type == "cuda":
+        # The gather's two host steps alone, on its board, beside one gloo barrier.
+        board = w.peers.board_of(w)
+        offer = np.zeros(ring_exchange._HEAD + ring_exchange._SLOT, dtype=np.int64)
+        res["time_board_ms"] = _wall_ms(lambda: (board.exchange(offer), board.barrier(False)),
+                                        200, dev)
+        res["time_gloo_barrier_ms"] = _wall_ms(dist.barrier, 200, dev)
+    return res
+
+
+def cross_process_job(stores: list, cfg: PipelineConfig, processes: int) -> dict:
+    """(c) and (d)'s parts across `processes` processes: the windows of the
+    first `processes` stores (one per process) and BA on the first, every
+    ring case of at least that many ranks, the repeats and the times."""
+    c = cfg.camera
+    W = min(5, min(int(st.count) for st in stores))
+    slots = [window_slots(st, W) for st in stores[:processes]]
+    stores = stores[:processes]
+    st, sl = stores[0], slots[0]
+    problem = BAProblem(images=st.image[sl], xs=st.xs[sl], ys=st.ys[sl],
+                        inv_depth=st.inv_depth[sl], intensity=st.intensity[sl],
+                        point_valid=st.point_valid[sl], pose=st.pose[sl],
+                        kf_valid=st.occupied[sl])
+    return {
+        "windows": {"poses": [s.pose[sl].cpu() for s, sl in zip(stores, slots)],
+                    "blocks": [torch.cat([s.xs[sl], s.ys[sl], s.inv_depth[sl], s.intensity[sl]],
+                                         dim=1).cpu() for s, sl in zip(stores, slots)]},
+        "ba": {"problem": tuple(t.cpu() for t in problem), "camera": (c.fx, c.fy, c.cx, c.cy),
+               "iters": 4},
+        "ring_cases": [case for case in RING_CASES if case[0] >= processes],
+        "ring_repeats": (RING_REPEATS, 7, RING_TIMING[0]),
+        "ring_timing": [(shape, reps) for shape, reps in zip(RING_TIMING, (50, 20))],
+    }
+
+
+def path_gathers(job: dict) -> int:
+    """The gathers across processes of `job`'s path work in each process:
+    the windows' two, and six partial sums per BA iteration and the inverse
+    depths for each of BA's two solves."""
+    return 2 * ("windows" in job) + (2 * (6 * job["ba"]["iters"] + 1) if "ba" in job else 0)
+
+
+def job_gathers(job: dict) -> int:
+    """All the gathers across processes that each process makes for `job`:
+    :func:`path_gathers`, one per ring case and repeat, and each timing's
+    calls with its warm one."""
+    n = path_gathers(job) + len(job.get("ring_cases", ()))
+    n += job["ring_repeats"][0] if "ring_repeats" in job else 0
+    return n + sum(reps + 1 for _, reps in job.get("ring_timing", ()))
+
+
+def check_job(recs: list, job: dict, ba_one: dict | None, label: str, log=_log,
+              launches: int = 1) -> dict:
+    """Gates the job's results of every process: the windows and ring cases
+    bit for bit with `launches` launches per process and gather (one on a
+    card, none on the CPU), no repeat differing, and BA across the
+    processes equal to `ba_one` ({fix: BAResult of one process's
+    ``ba_solve_sharded`` over as many ranks}) bit for bit. Returns the
+    largest time per gather over the processes by key."""
+    n = len(recs)
+    bad = []
+    for name in ("poses", "blocks") if "windows" in job else ():
+        ok = all(bool(r[f"windows_{name}_ok"]) and int(r[f"windows_{name}_launches"]) ==
+                 launches for r in recs)
+        log(f"{'PASS' if ok else 'FAIL'}  {label}: ring across {n} processes on the window "
+            f"{name} ({tuple(job['windows'][name][0].shape)} per rank), bitwise vs plain and "
+            f"torch.cat, launches {[int(r[f'windows_{name}_launches']) for r in recs]}")
+        bad += [] if ok else [f"windows {name}"]
+    for i, (num, shape, dtype, offset) in enumerate(job.get("ring_cases", ())):
+        ok = all(bool(r[f"case{i}_ok"]) and int(r[f"case{i}_launches"]) == launches
+                 for r in recs)
+        log(f"{'PASS' if ok else 'FAIL'}  {label}: ring {num} ranks across {n} processes shard="
+            f"{shape} {dtype} offset={offset}: bitwise vs plain and torch.cat, max|diff|="
+            f"{max(float(r[f'case{i}_err']) for r in recs)}, launches "
+            f"{[int(r[f'case{i}_launches']) for r in recs]} (want {launches} per process)")
+        bad += [] if ok else [f"case {i}"]
+    if "ring_repeats" in job:
+        count = job["ring_repeats"][0]
+        nbad = sum(int(r["repeats_bad"]) for r in recs)
+        log(f"{label}: {count} back-to-back gathers across {n} processes of "
+            f"{job['ring_repeats'][2]} per process, torch.cuda.empty_cache() after every "
+            f"{job['ring_repeats'][1]}th: {nbad} outputs differ")
+        bad += [f"{nbad} repeats"] if nbad else []
+    if "ba" in job:
+        for fix in (True, False):
+            want = ba_one[fix]
+            same = all(all(np.array_equal(r[f"ba_{int(fix)}_{k}"], getattr(want, k).cpu().numpy())
+                           for k in ("pose", "inv_depth", "cost_initial", "cost_final",
+                                     "num_residuals")) for r in recs)
+            log(f"{'PASS' if same else 'FAIL'}  {label}: ba_solve_sharded over grid_mesh(1, {n}) "
+                f"across {n} processes, fix_depths={fix}: poses, inverse depths, costs and "
+                f"residuals equal one process's ba_solve_sharded over {n} ranks, bit for bit "
+                f"(cost {float(want.cost_initial):.6f} -> {float(want.cost_final):.6f})")
+            bad += [] if same else [f"BA fix_depths={fix}"]
+    got, want = [int(r["ring_launches"]) for r in recs], launches * job_gathers(job)
+    path = [int(r["path_ring_launches"]) for r in recs]
+    want_path = launches * path_gathers(job)
+    log(f"{label}: B3 launches per process {got}, {path} of them on the windows and BA (want "
+        f"{want} and {want_path}: {launches} per gather)")
+    bad += [] if got == [want] * n and path == [want_path] * n else ["B3 launches"]
+    if bad:
+        raise RuntimeError(f"{label}: {bad} fail")
+    return {k: max(float(r[k]) for r in recs) for k in recs[0] if k.startswith("time_")}
 
 
 def per_process_layout(timed: dict, per_card: int, num_frames: int, log=_log) -> dict:
     """(b): one process per card at each n of (a) (only n = 1 when
-    rehearsing on one card), held to (a)'s poses; then the KITTI sweep's 22
-    sequences on 2 cards. Returns {n: wall sequence-frames/s}."""
+    rehearsing on one card), on the global mesh, held to (a)'s poses, with
+    the ring cases across the processes at n >= 2; then the KITTI sweep's
+    22 sequences on 2 cards. Returns {n: wall sequence-frames/s}."""
     physical = torch.cuda.device_count()
     rates = {}
     for n in timed:
@@ -427,7 +678,10 @@ def per_process_layout(timed: dict, per_card: int, num_frames: int, log=_log) ->
             log(f"(b) {n} processes: not run, {physical} card(s) visible")
             continue
         groups = [list(range(k * per_card, (k + 1) * per_card)) for k in range(n)]
-        recs = per_process(groups, num_frames)
+        job = {"ring_cases": [c for c in RING_CASES if c[0] >= n]} if n > 1 else {}
+        recs = per_process(groups, num_frames, job=job)
+        if job:
+            check_job(recs, job, None, f"(d) {n} processes", log)
         poses = np.concatenate([r["poses"] for r in recs])
         if not all(bool(r["health"].all()) for r in recs):
             raise RuntimeError(f"(b) {n} processes: global_ok False on a frame")
@@ -440,10 +694,10 @@ def per_process_layout(timed: dict, per_card: int, num_frames: int, log=_log) ->
             raise RuntimeError(f"(b) {n} processes: keyframes differ from one process's")
         wall = max(float(r["seconds"]) for r in recs)
         rates[n] = n * per_card * (num_frames - 1) / wall
-        log(f"(b) one process per card, {n} process(es) x {per_card} sequences x {num_frames} "
-            f"frames: {rates[n]:.3f} wall sequence-frames/s (slowest process {wall:.3f} s; "
-            f"each {[round(float(r['seconds']), 3) for r in recs]} s), "
-            f"{rates[n] / rates[1]:.3f}x one card; peak GiB per process "
+        log(f"(b) one process per card on the global sequence_mesh(), {n} process(es) x "
+            f"{per_card} sequences x {num_frames} frames: {rates[n]:.3f} wall sequence-frames/s "
+            f"(slowest process {wall:.3f} s; each {[round(float(r['seconds']), 3) for r in recs]} "
+            f"s), {rates[n] / rates[1]:.3f}x one card; peak GiB per process "
             f"{[round(float(r['peak_gib']), 3) for r in recs]}; against one process on {n} "
             f"card(s) {timed[n]['rate']:.3f}; poses and keyframes equal one process's, bit for "
             f"bit; every process exited 0")
@@ -468,13 +722,52 @@ def per_process_layout(timed: dict, per_card: int, num_frames: int, log=_log) ->
     return rates
 
 
+def across_processes(cards: list, stores: list, cfg: PipelineConfig, card: str,
+                     log=_log) -> dict:
+    """(c) and (d) across processes: one process per card of `cards` (a
+    card may repeat: its processes share it), the windows' ring and
+    ``ba_solve_sharded`` over ``grid_mesh(1, processes)``, held bit for bit
+    to this process's ``ba_solve_sharded`` over as many ranks on `cards`,
+    the ring cases, the repeats and the times. Returns the times, the
+    processes' B3 launches (all, and those of the windows and BA) and
+    their B1 launches."""
+    n = len(cards)
+    job = cross_process_job(stores, cfg, n)
+    b = job["ba"]
+    problem = BAProblem(*(t.to(cards[0]) for t in b["problem"]))
+    cam = Pinhole.create(*b["camera"])
+    ba_one = {fix: ba_solve_sharded(problem, cam, grid_mesh(1, n, list(cards)),
+                                    BAConfig(iters=b["iters"], fix_depths=fix,
+                                             window=problem.xs.shape[0]))
+              for fix in (True, False)}
+    recs = per_process([[] for _ in range(n)], 0, cards=[d.index for d in cards], job=job)
+    times = check_job(recs, job, ba_one, f"(c)/(d) {n} processes", log)
+    for shape in RING_TIMING:
+        label = "x".join(map(str, shape))
+        nbytes = int(np.prod(shape)) * 4
+        bound = ring_bound_ms(list(cards), nbytes)
+        nccl = times.get(f"time_{label}_nccl_ms")
+        log(f"timing ring across {n} processes on {[str(d) for d in cards]}, one shard {shape} "
+            f"float32 each: {times[f'time_{label}_ms']:.4f} ms per gather (host time of "
+            f"back-to-back gathers, the slowest process), bound {bound:.4f} ms, NCCL "
+            f"all_gather_into_tensor " + (f"{nccl:.4f} ms" if nccl is not None else
+                                          "not run (processes share a card: gloo)") + f" [{card}]")
+    log(f"(c)/(d) {n} processes: the two host steps of a gather alone on its board "
+        f"{times['time_board_ms']:.4f} ms, one gloo barrier {times['time_gloo_barrier_ms']:.4f} ms "
+        f"(host time of 200 back-to-back, the slowest process) [{card}]")
+    return {"times": times, "ring_launches": sum(int(r["ring_launches"]) for r in recs),
+            "path_ring_launches": sum(int(r["path_ring_launches"]) for r in recs),
+            "band_launches": sum(int(r["band_launches"]) for r in recs)}
+
+
 # -------------------------------------------- (c) the windows and sharded BA
 
 
-def windows_and_ba(cards: list, stores: list, cfg: PipelineConfig, log=_log) -> int:
+def windows_and_ba(cards: list, stores: list, cfg: PipelineConfig, log=_log) -> tuple:
     """(c): the ring across the cards on the stores' window poses and point
     blocks, then BA on the first store, single on its card and sharded over
-    ``grid_mesh(1, 4)`` of the cards. Returns the ring's launches."""
+    ``grid_mesh(1, 4)`` of the cards. Returns (the ring's launches,
+    {fix_depths: the sharded result})."""
     c = cfg.camera
     cam = Pinhole.create(c.fx, c.fy, c.cx, c.cy)
     W = min(5, min(int(st.count) for st in stores))
@@ -509,10 +802,11 @@ def windows_and_ba(cards: list, stores: list, cfg: PipelineConfig, log=_log) -> 
                         point_valid=st.point_valid[sl], pose=st.pose[sl],
                         kf_valid=st.occupied[sl])
     model = grid_mesh(1, 4, spread(cards, 4))
+    sharded_by_fix = {}
     for fix in (True, False):
         bacfg = BAConfig(iters=4, fix_depths=fix, window=W)
         single = ba_solve(problem, cam, bacfg)
-        sharded = ba_solve_sharded(problem, cam, model, bacfg)
+        sharded = sharded_by_fix[fix] = ba_solve_sharded(problem, cam, model, bacfg)
         _sync(cards)
         dpose = float((sharded.pose - single.pose).abs().max())
         dinv = (sharded.inv_depth - single.inv_depth).abs()
@@ -534,7 +828,7 @@ def windows_and_ba(cards: list, stores: list, cfg: PipelineConfig, log=_log) -> 
             f"max|dinv|={float(dinv.max()):.3e} ({gates})")
         if not ok:
             raise RuntimeError(f"(c) BA (fix_depths={fix}) fails its gates")
-    return launches
+    return launches, sharded_by_fix
 
 
 # ------------------------------------------------------- (d) B3 across cards
@@ -650,10 +944,11 @@ def scaling(cards: list, card: str, log=_log) -> list:
 
 def run(cards: list, *, per_card: int = PER_CARD, num_frames: int = NUM_FRAMES,
         log=_log) -> dict:
-    """(a)-(e) on `cards` (four at most are used), (b) last: its processes
-    need the cards to themselves. Returns a summary: rates
-    by layout and n, B3 launches in (c), (d)'s errors and times, the
-    scaling rows; raises where a gate fails."""
+    """(a)-(e) on `cards` (four at most are used), then (b) and (c)/(d)
+    across processes last: their processes need the cards to themselves.
+    Returns a summary: rates by layout and n, B3 launches in (c), (d)'s
+    errors and times, the times and launches across processes, the scaling
+    rows; raises where a gate fails."""
     cards = list(cards)[:max(SIZES)]
     card = card_line(cards[0].index)
     cfg = fast_config()
@@ -667,16 +962,18 @@ def run(cards: list, *, per_card: int = PER_CARD, num_frames: int = NUM_FRAMES,
     if disparity_band.LAUNCHES == band0:
         raise RuntimeError("(a) the sweep launched no band kernel")
     del runs
-    ring_c = windows_and_ba(cards, stores, cfg, log)
+    ring_c, _ = windows_and_ba(cards, stores, cfg, log)
     ring_d = ring_across_cards(cards, card, log)
     rows = scaling(cards, card, log)
     rates_b = per_process_layout(timed, per_card, num_frames, log)
+    across = across_processes(cards, stores, cfg, card, log)
     summary = {
         "cards": [str(d) for d in cards], "card": card,
         "one_process_rate": {n: r["rate"] for n, r in timed.items()},
         "one_process_peak_gib": {n: r["peak_gib"] for n, r in timed.items()},
         "per_process_rate": rates_b, "ring_launches_c": ring_c,
         "ring_timing": ring_d["timing"], "ring_max_err": max(ring_d["errs"]),
+        "across_processes": across,
         "scaling": [{k: r[k] for k in r if k != "ops_by_rank"} for r in rows],
         "seconds": time.perf_counter() - t0,
     }
@@ -694,12 +991,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", default="0")
     ap.add_argument("--config", default="fast", choices=sorted(CONFIGS))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--card", type=int, default=0, help="(internal) the worker's card")
+    ap.add_argument("--job", help="(internal) the worker's parts across processes (torch.save)")
     args = ap.parse_args(argv)
     if args.worker:
         rank, world, port, out = args.worker
+        job = torch.load(args.job, weights_only=False) if args.job else None
         return worker(int(rank), int(world), int(port), out,
-                      [int(s) for s in args.seeds.split(",")], args.frames, config=args.config,
-                      device=args.device)
+                      [int(s) for s in args.seeds.split(",") if s], args.frames,
+                      config=args.config, device=args.device, card=args.card, job=job)
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if count < 2 and not (args.rehearse and count == 1):
         print(f"multichip: needs 2 CUDA cards or more, {count} visible", file=sys.stderr)

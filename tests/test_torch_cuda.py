@@ -479,6 +479,72 @@ def test_ring_on_several_devices_raises_without_copying(card):
     assert shards[1].device.type == "cpu"
 
 
+# Across processes: two worker processes of tools/multichip.py share card 0
+# (gloo for the host steps; CUDA IPC within one device).
+ACROSS_CASES = [c for c in RING_CASES if c[0] >= 2]
+# Shards of no bytes: the gather launches nothing, and the processes' host
+# steps stay in step for the repeats after it.
+EMPTY_CASE = (2, (0, 4), torch.float32, 0)
+
+
+@pytest.fixture(scope="module")
+def two_processes_on_one_card():
+    """Both workers' records: the ring cases across them and EMPTY_CASE, 200
+    gathers with ``torch.cuda.empty_cache()`` after every 7th, and ``ba_solve_sharded``
+    over ``grid_mesh(1, 2)`` on _ba_problem across them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from odometry_torch.tools import multichip
+
+    prob, _ = _ba_problem(torch.device("cpu"))
+    job = {"ring_cases": ACROSS_CASES + [EMPTY_CASE], "ring_repeats": (200, 7, (7, 16384)),
+           "ba": {"problem": tuple(prob), "camera": (240.0, 240.0, 80.0, 48.0), "iters": 3}}
+    return multichip.per_process([[], []], 0, cards=[0, 0], job=job, timeout=600)
+
+
+@pytest.mark.parametrize("i", range(len(ACROSS_CASES)))
+def test_ring_across_two_processes_on_one_card(two_processes_on_one_card, i):
+    """B3 across two processes of one card through CUDA IPC: every rank's
+    gather equals the plain ring and torch.cat bit for bit, one launch per
+    process and gather."""
+    for rec in two_processes_on_one_card:
+        assert bool(rec[f"case{i}_ok"]) and float(rec[f"case{i}_err"]) == 0.0
+        assert int(rec[f"case{i}_launches"]) == 1
+
+
+def test_empty_ring_across_processes_launches_nothing(two_processes_on_one_card):
+    """Shards of no bytes across the two processes: an empty gather equal to
+    the plain ring and torch.cat, no launch."""
+    i = len(ACROSS_CASES)
+    for rec in two_processes_on_one_card:
+        assert bool(rec[f"case{i}_ok"]) and int(rec[f"case{i}_launches"]) == 0
+
+
+def test_ring_across_processes_repeats_with_empty_cache(two_processes_on_one_card):
+    """200 back-to-back gathers across the two processes, the caching
+    allocator's segments released after every 7th (a peer's new allocation
+    over an old one's addresses closes the old mapping): 0 outputs differ."""
+    for rec in two_processes_on_one_card:
+        assert int(rec["repeats_bad"]) == 0
+        assert int(rec["ring_launches"]) == len(ACROSS_CASES) + 200 + 3 * 6 * 2 + 1 * 2
+
+
+@pytest.mark.parametrize("fix_depths", [True, False])
+def test_sharded_ba_across_two_processes_equals_one_process(two_processes_on_one_card, card,
+                                                            fix_depths):
+    """ba_solve_sharded over grid_mesh(1, 2) across the two processes equals
+    it over grid_mesh(1, 2) of one process, bit for bit."""
+    prob, cam = _ba_problem(card)
+    one = ba_solve_sharded(prob, cam, grid_mesh(1, 2, card),
+                           BAConfig(window=4, iters=3, fix_depths=fix_depths))
+    for rec in two_processes_on_one_card:
+        for k in ("pose", "inv_depth", "cost_initial", "cost_final", "num_residuals"):
+            np.testing.assert_array_equal(rec[f"ba_{int(fix_depths)}_{k}"],
+                                          getattr(one, k).cpu().numpy())
+        # one launch per gather: six partial sums per iteration and the depths, per solve
+        assert int(rec["path_ring_launches"]) == 2 * (6 * 3 + 1)
+
+
 def _ba_problem(dev, K=4, P=512, H=96, W=160, seed=31, pose_noise=0.02):
     """tests/test_ba.py's fixture built with the port: K views of a tilted
     plane 0.35 m apart, P selected points each, poses 1..K-1 perturbed."""

@@ -31,14 +31,19 @@ def _configs(C, H=64, W=96):
 
 
 if __name__ == "__main__":
-    # Worker of test_two_process_sweep_health: one CPU rank per process, one
-    # sequence each, health reduced over a gloo group. Imports no JAX.
+    # Worker of test_two_process_sweep_health: one CPU rank per process on the
+    # global mesh, one sequence each, health reduced over a gloo group.
+    # Imports no JAX.
     from odometry_torch import config as tc
     from odometry_torch.camera.pinhole import Pinhole
     from odometry_torch.data.synthetic import make_scene, render_stereo
     from odometry_torch.distributed import sweep
     from odometry_torch.distributed.mesh import sequence_mesh
-    from odometry_torch.distributed.scaling import initialize_multihost, stack_local_frames
+    from odometry_torch.distributed.scaling import (
+        initialize_multihost,
+        shutdown_multihost,
+        stack_local_frames,
+    )
 
     rank, port, healthy = int(sys.argv[1]), sys.argv[2], sys.argv[3] == "1"
     assert initialize_multihost(f"localhost:{port}", 2, rank, device="cpu")
@@ -47,7 +52,8 @@ if __name__ == "__main__":
     scene = make_scene(rank, depth=14.0, device="cpu")
     left, right, _ = render_stereo(scene, Pinhole.create(c.fx, c.fy, c.cx, c.cy), c.baseline,
                                    torch.eye(4), c.height, c.width)
-    mesh = sequence_mesh(1, device="cpu")
+    mesh = sequence_mesh(device="cpu")  # the global mesh: one rank per process
+    assert mesh.shape == {"seq": 2} and mesh.local_ranks() == [rank]
     lefts, rights = stack_local_frames([(left, right)], mesh)
     states = sweep.batched_init(lefts, rights, cfg, mesh)
     if not healthy:  # a flat frame: no depth survivors, depth_ok False
@@ -55,7 +61,7 @@ if __name__ == "__main__":
     _, outs, global_ok = sweep.batched_step(states, lefts, rights, cfg, mesh)
     print(f"WORKER rank={rank} local_ok={bool(outs[0].depth_ok)} global_ok={bool(global_ok)}",
           flush=True)
-    torch.distributed.destroy_process_group()
+    shutdown_multihost()
     sys.exit(0)
 
 

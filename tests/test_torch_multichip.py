@@ -23,7 +23,8 @@ from odometry_tpu.distributed import sweep as jsw
 from odometry_torch import config as tc
 from odometry_torch.distributed import ring_exchange
 from odometry_torch.distributed import sweep as tsw
-from odometry_torch.distributed.mesh import grid_mesh, sequence_mesh, spread
+from odometry_torch.distributed import mesh as tmesh
+from odometry_torch.distributed.mesh import World, grid_mesh, sequence_mesh, spread
 from odometry_torch.distributed.ring_exchange import launch_plan, ring_gather
 from odometry_torch.kernels import _build
 from odometry_torch.tools import multichip
@@ -84,6 +85,62 @@ def test_ranks_past_the_cards_spread_in_order(visible):
     assert grid_mesh(1, 8).devices.tolist() == [[cuda(0)] * 8]
     assert sequence_mesh().shape == {"seq": 1}
     assert spread(["a", "b"], 5) == ["a", "a", "a", "b", "b"]
+
+
+@pytest.fixture
+def world_of(monkeypatch, visible):
+    """world_of(processes, per, me): a group of `processes` processes with
+    `per` cards each, as initialize_multihost would leave it in process `me`
+    (every process sees cards 0..per-1 as its own)."""
+
+    def patch(processes, per, me):
+        visible(per)
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(tmesh, "_WORLD", World(
+            process=me, hosts=("host",) * processes,
+            devices=tuple(tuple(cuda(k) for k in range(per)) for _ in range(processes)),
+            uuids=tuple(tuple(f"GPU-{p}-{k}" for k in range(per)) for p in range(processes)),
+            backend="nccl"))
+
+    return patch
+
+
+@pytest.mark.parametrize("me", range(4))
+def test_global_mesh_is_the_references_process_major_order(world_of, me):
+    """After initialize_multihost, 4 processes x 2 cards: sequence_mesh() has
+    8 ranks, process-major, as a multi-process jax.devices() lists the
+    devices (process p's two hold ids 2p, 2p + 1): against the reference's
+    8-device sequence_mesh() and grid_mesh(2, 4); each process owns its own
+    two ranks."""
+    world_of(4, 2, me)
+    mesh, ref = sequence_mesh(), jmesh.sequence_mesh()
+    assert mesh.processes.tolist() == [k // 2 for k in range(8)]
+    assert list(mesh.devices) == [cuda(k % 2) for k in range(8)]
+    assert [2 * int(p) + d.index for p, d in zip(mesh.processes, mesh.devices)] == [
+        d.id for d in ref.devices]
+    grid, ref_grid = grid_mesh(2, 4), jmesh.grid_mesh(2, 4)
+    assert (2 * grid.processes + np.vectorize(lambda d: d.index)(grid.devices)).tolist() == [
+        [d.id for d in row] for row in ref_grid.devices]
+    assert mesh.local_ranks() == [2 * me, 2 * me + 1]
+    assert [mesh.is_local(r) for r in range(8)] == [r // 2 == me for r in range(8)]
+    assert grid.axis_mesh("model").processes.tolist() == [0, 0, 1, 1]
+
+
+def test_global_mesh_rules(world_of):
+    """The first n ranks of the world, spread past them in order; an index
+    or a list still names this process's devices; the sweep takes this
+    process's ranks and refuses a mesh that leaves a process out."""
+    world_of(4, 2, 1)
+    assert sequence_mesh(2).processes.tolist() == [0, 0]
+    assert sequence_mesh(16).processes.tolist() == [k // 4 for k in range(16)]
+    assert list(sequence_mesh(16).devices) == [cuda(k // 2 % 2) for k in range(16)]
+    for local in (sequence_mesh(3, "cuda:1"), sequence_mesh(device=[cuda(0), cuda(1)])):
+        assert local.processes is None and local.local_ranks() == list(range(local.size))
+    assert tsw.sequence_devices(4, sequence_mesh()) == [cuda(0), cuda(0), cuda(1), cuda(1)]
+    with pytest.raises(ValueError, match="lie in processes \\[0\\] of the group's 4"):
+        tsw.sequence_devices(2, sequence_mesh(2))
+    with pytest.raises(ValueError, match="not divisible by the 2 ranks of 'seq' of this process"):
+        tsw.sequence_devices(3, sequence_mesh())
 
 
 def test_launch_plan_is_one_launch_per_card():
@@ -206,3 +263,35 @@ def test_the_tool_refuses_fewer_than_two_cards(capsys):
 
 def test_port_config_module_builds_the_dry_run_configuration():
     assert dataclasses.asdict(_dryrun_cfg(tc)) == dataclasses.asdict(multichip.dryrun_config())
+
+
+def test_the_job_across_processes_on_the_cpu():
+    """(c) and (d)'s parts across processes as the tool runs them on the
+    cards, here on two CPU processes (one rank each, the plain ring with
+    gloo hops): the windows and every ring case of two ranks or more bit for
+    bit, the repeats, and ba_solve_sharded across the processes equal to one
+    process's over two ranks bit for bit (both on one torch thread, as the
+    workers run); no B3 launch on the CPU."""
+    from odometry_torch.distributed.ba_dist import ba_solve_sharded
+    from odometry_torch.mapping.ba import BAConfig
+    from tests.test_torch_cuda import _ba_problem
+
+    prob, cam = _ba_problem(torch.device("cpu"), P=128)
+    g = torch.Generator().manual_seed(5)
+    job = {"windows": {"poses": [torch.randn((5, 4, 4), generator=g) for _ in range(2)],
+                       "blocks": [torch.randn((5, 64), generator=g) for _ in range(2)]},
+           "ba": {"problem": tuple(prob), "camera": (cam.fx, cam.fy, cam.cx, cam.cy), "iters": 2},
+           "ring_cases": [c for c in multichip.RING_CASES if c[0] >= 2][:4],
+           "ring_repeats": (5, 2, (3, 8)), "ring_timing": [((2, 8), 2)]}
+    recs = multichip.per_process([[], []], 0, device="cpu", job=job, timeout=300)
+    ba_one = {fix: ba_solve_sharded(prob, cam, grid_mesh(1, 2, device="cpu"),
+                                    BAConfig(window=4, iters=2, fix_depths=fix))
+              for fix in (True, False)}
+    lines = []
+    times = multichip.check_job(recs, job, ba_one, "cpu", lines.append, launches=0)
+    assert all(line.startswith("PASS") for line in lines if "PASS" in line or "FAIL" in line)
+    # windows 2, cases 4, repeats 5, BA 2 x (6 sums x 2 iterations + depths), timing 2 + 1
+    assert multichip.job_gathers(job) == 2 + 4 + 5 + 2 * (6 * 2 + 1) + 3
+    assert multichip.path_gathers(job) == 2 + 2 * (6 * 2 + 1)
+    assert [int(r["path_ring_launches"]) for r in recs] == [0, 0]
+    assert list(times) == ["time_2x8_ms"] and times["time_2x8_ms"] > 0
