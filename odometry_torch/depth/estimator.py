@@ -33,6 +33,7 @@ from odometry_torch.kernels.disparity import disparity_winner_maps
 from odometry_torch.kernels.points import PointSet, extract_points
 from odometry_torch.kernels.select import block_median_map, select_points
 from odometry_torch.utils.batch import batch_of_one, lane
+from odometry_torch.utils.profiling import span
 
 _SENTINEL = -1000.0  # depth_estimate.cpp:221
 
@@ -119,7 +120,8 @@ def _refine_loop(eval_system, d0: torch.Tensor, cfg: DepthConfig, clamp=None):
         iters = iters + active.to(torch.int32)
         active = active & ~(break_bad | break_good)
         it += 1
-        going = bool(active.any())
+        with span("read.depth_refine"):
+            going = bool(active.any())
     return current, resid, iters, err_now, escaped
 
 
@@ -287,9 +289,17 @@ def compute_depth(left: torch.Tensor, right: torch.Tensor, cam: CameraConfig,
                   cfg: DepthConfig) -> DepthResult:
     """Full frontend, equivalent of ``DepthEstimator::ComputeDepth`` (:33-78),
     of one pair (H, W) or a batch of pairs (B, H, W): one SSD kernel launch
-    and one refinement loop for the batch, each image's products its own."""
+    and one refinement loop for the batch, each image's products its own.
+    A batch is the span ``depth.compute``."""
     if left.dim() == 2:
         return lane(compute_depth(left[None], right[None], cam, cfg), 0)
+    with span("depth.compute"):
+        return _compute_depth(left, right, cam, cfg)
+
+
+def _compute_depth(left: torch.Tensor, right: torch.Tensor, cam: CameraConfig,
+                   cfg: DepthConfig) -> DepthResult:
+    """:func:`compute_depth` of a batch (B, H, W)."""
     H, W = left.shape[-2:]
     dev = left.device
     left_s = gaussian_blur3(left)

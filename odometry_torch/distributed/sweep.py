@@ -50,6 +50,7 @@ from odometry_torch.config import PipelineConfig
 from odometry_torch.distributed.mesh import Mesh, sequence_mesh, world
 from odometry_torch.pipeline.odometry import init_batch, step_batch
 from odometry_torch.utils.batch import batch_size, lane
+from odometry_torch.utils.profiling import span
 
 
 def sequence_devices(num_seqs: int, mesh: Mesh) -> list:
@@ -88,7 +89,8 @@ def _global_ok(ok: list, mesh: Mesh) -> torch.Tensor:
         if w.backend == "nccl":
             dist.all_reduce(pair, op=dist.ReduceOp.SUM, group=w.device_group)
         else:  # gloo reduces on the host
-            host = pair.cpu()
+            with span("read.global_ok"):
+                host = pair.cpu()
             dist.all_reduce(host, op=dist.ReduceOp.SUM)
             pair = host.to(dev0)
         COLLECTIVE_BYTES += pair.numel() * pair.element_size() * (w.size - 1)
@@ -128,15 +130,17 @@ def batched_step(states: list, left_b, right_b, cfg: PipelineConfig, mesh: Mesh)
 
     Each rank steps all of its sequences with one ``step_batch``, their
     frames moved to its device. global_ok: True iff every sequence's depth
-    frame is healthy, on every rank of every process.
+    frame is healthy, on every rank of every process. The span
+    ``sweep.batched_step``.
     """
-    new_states, outs = [], []
-    for state, left, right in zip(states, rank_frames(left_b, mesh),
-                                  rank_frames(right_b, mesh)):
-        s, out = step_batch(state, left, right, cfg)
-        new_states.append(s)
-        outs.append(out)
-    return new_states, outs, _global_ok([o.depth_ok for o in outs], mesh)
+    with span("sweep.batched_step"):
+        new_states, outs = [], []
+        for state, left, right in zip(states, rank_frames(left_b, mesh),
+                                      rank_frames(right_b, mesh)):
+            s, out = step_batch(state, left, right, cfg)
+            new_states.append(s)
+            outs.append(out)
+        return new_states, outs, _global_ok([o.depth_ok for o in outs], mesh)
 
 
 def run_sweep(frames_per_seq, cfg: PipelineConfig, mesh: Mesh | None = None, *,

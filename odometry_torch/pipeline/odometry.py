@@ -49,11 +49,18 @@ from odometry_torch.tracking.tracker import (
     solve_pose_points,
 )
 from odometry_torch.utils.batch import batch_of_one, lane, one_lane_unbatched, tree_map
+from odometry_torch.utils.profiling import span
 
 # Pose products; a batch of one takes the unbatched kernels, so one
 # sequence's step rounds as the unbatched code does (utils/batch.py).
 _compose = one_lane_unbatched(se3_compose)
 _inverse = one_lane_unbatched(se3_inverse)
+
+# Depth-frontend runs of the steps (inits not counted) and the sequences they
+# ran on: one per batched run and its B, or one per lazy sub-batch and its
+# size.
+DEPTH_RUNS = 0
+DEPTH_LANES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,35 +125,37 @@ def init_batch(left_b, right_b, cfg: PipelineConfig, init_pose=None, *,
 
     `left_b`/`right_b` are (B, H, W) images (numpy or tensors), moved to
     `device`; `init_pose` is one (4, 4) pose for every sequence or (B, 4, 4).
-    One depth run (one SSD kernel launch) for the batch.
+    One depth run (one SSD kernel launch) for the batch. The span
+    ``pipeline.init_batch``.
     """
-    dev = resolve_device(device)
-    left = torch.as_tensor(left_b, dtype=torch.float32, device=dev)
-    right = torch.as_tensor(right_b, dtype=torch.float32, device=dev)
-    B = left.shape[0]
-    n = cfg.tracker.num_levels
-    dres = compute_depth(left, right, cfg.camera, cfg.depth)
-    pyr = gaussian_image_pyramid(left, n, smooth=True)
-    dpyr = depth_pyramid(dres.inv_depth, n, indexing=cfg.tracker.depth_decimation)
-    i32 = dict(dtype=torch.int32, device=dev)
-    pose0 = (se3_identity((B,), device=dev) if init_pose is None
-             else torch.as_tensor(init_pose, dtype=torch.float32, device=dev)
-             .expand(B, 4, 4).clone())
-    state = OdometryState(
-        kf_pyr=pyr,
-        kf_dpyr=dpyr,
-        kf_track=_keyframe_track(pyr, dpyr, cfg),
-        kf_valid=dres.valid,
-        kf_pose=pose0,
-        pose_init=se3_identity((B,), device=dev),
-        cur_pose=pose0,
-        prev_rel=se3_identity((B,), device=dev),
-        frame_id=torch.zeros(B, **i32),
-        kf_count=torch.ones(B, **i32),
-        healthy=dres.ok,
-        lost_streak=torch.zeros(B, **i32),
-    )
-    return state, dres.ok
+    with span("pipeline.init_batch"):
+        dev = resolve_device(device)
+        left = torch.as_tensor(left_b, dtype=torch.float32, device=dev)
+        right = torch.as_tensor(right_b, dtype=torch.float32, device=dev)
+        B = left.shape[0]
+        n = cfg.tracker.num_levels
+        dres = compute_depth(left, right, cfg.camera, cfg.depth)
+        pyr = gaussian_image_pyramid(left, n, smooth=True)
+        dpyr = depth_pyramid(dres.inv_depth, n, indexing=cfg.tracker.depth_decimation)
+        i32 = dict(dtype=torch.int32, device=dev)
+        pose0 = (se3_identity((B,), device=dev) if init_pose is None
+                 else torch.as_tensor(init_pose, dtype=torch.float32, device=dev)
+                 .expand(B, 4, 4).clone())
+        state = OdometryState(
+            kf_pyr=pyr,
+            kf_dpyr=dpyr,
+            kf_track=_keyframe_track(pyr, dpyr, cfg),
+            kf_valid=dres.valid,
+            kf_pose=pose0,
+            pose_init=se3_identity((B,), device=dev),
+            cur_pose=pose0,
+            prev_rel=se3_identity((B,), device=dev),
+            frame_id=torch.zeros(B, **i32),
+            kf_count=torch.ones(B, **i32),
+            healthy=dres.ok,
+            lost_streak=torch.zeros(B, **i32),
+        )
+        return state, dres.ok
 
 
 def init(left, right, cfg: PipelineConfig, init_pose=None, *,
@@ -187,12 +196,16 @@ def _depth_products(state: OdometryState, pyr_cur, left, right, candidate,
     """(DepthResult, depth pyramid, point lists) of this frame for every
     sequence of the batch. Depth runs on every sequence with
     ``depth_every_frame``; else on the candidate sequences only, gathered as
-    one sub-batch (the step's one read of the candidate mask), and the
-    others get the skip branch's zeros."""
+    one sub-batch (the step's one read of the candidate mask, the span
+    ``read.depth_candidates``), and the others get the skip branch's zeros.
+    Counts each run in ``DEPTH_RUNS`` and its sequences in ``DEPTH_LANES``."""
     n = cfg.tracker.num_levels
     B, H, W = left.shape
 
     def run(idx):
+        global DEPTH_RUNS, DEPTH_LANES
+        DEPTH_RUNS += 1
+        DEPTH_LANES += B if idx is None else idx.numel()
         take = (lambda t: t) if idx is None else (lambda t: t.index_select(0, idx))
         dres = compute_depth(take(left), take(right), cfg.camera, cfg.depth)
         dpyr = depth_pyramid(dres.inv_depth, n, indexing=cfg.tracker.depth_decimation)
@@ -200,11 +213,13 @@ def _depth_products(state: OdometryState, pyr_cur, left, right, candidate,
 
     if cfg.depth_every_frame:
         return run(None)
-    cand = candidate.cpu()
-    if bool(cand.all()):
+    with span("read.depth_candidates"):
+        cand = candidate.cpu()
+        every, some = bool(cand.all()), bool(cand.any())
+    if every:
         return run(None)
     zeros = _zero_depth(state, B, H, W)
-    if not bool(cand.any()):
+    if not some:
         return zeros
     idx = torch.nonzero(cand).reshape(-1).to(left.device)
     return tree_map(lambda z, v: z.index_copy(0, idx, v), zeros, run(idx))
@@ -216,7 +231,14 @@ def step_batch(state: OdometryState, left: torch.Tensor, right: torch.Tensor,
     (``run_odometry_kitti_offline.cpp:198-271``): `left`/`right` are
     (B, H, W) on the state's device. Each sequence's results are those of
     :func:`step` on it alone, to float32 rounding (see the module
-    docstring)."""
+    docstring). The span ``pipeline.step_batch``."""
+    with span("pipeline.step_batch"):
+        return _step_batch(state, left, right, cfg)
+
+
+def _step_batch(state: OdometryState, left: torch.Tensor, right: torch.Tensor,
+                cfg: PipelineConfig) -> tuple[OdometryState, StepOutput]:
+    """:func:`step_batch`'s body."""
     n = cfg.tracker.num_levels
     cam = _cam(cfg)
     dev = state.cur_pose.device

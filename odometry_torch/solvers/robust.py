@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from odometry_torch.utils.profiling import span
+
 
 def huber_weights(r: torch.Tensor, delta: float, valid: torch.Tensor) -> torch.Tensor:
     """w_i = 1 if |r_i| <= delta else delta/|r_i| (lm_optimizer.cpp:254)."""
@@ -44,7 +46,11 @@ def tdist_scale(r: torch.Tensor, valid: torch.Tensor, *, dof: float = 200.0,
     bcast = (...,) + (None,) * len(dims)
     it = 0
     going = torch.abs(sigma - prev) >= tol
-    while it < max_iters and bool(going.any()):
+    while it < max_iters:
+        with span("read.tdist_scale"):
+            more = bool(going.any())
+        if not more:
+            break
         s = torch.sum(r2 * (1.0 + dof) / (dof + r2 / (sigma * sigma)[bcast]), dim=dims)
         sigma, prev = torch.where(going, torch.sqrt(s / n), sigma), torch.where(going, sigma, prev)
         going = going & (torch.abs(sigma - prev) >= tol)

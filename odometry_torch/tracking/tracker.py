@@ -45,6 +45,7 @@ from odometry_torch.kernels.points import (
 from odometry_torch.solvers.linear6 import solve_spd6
 from odometry_torch.solvers.robust import robust_weights
 from odometry_torch.utils.batch import batch_of_one, lane, one_lane_unbatched
+from odometry_torch.utils.profiling import span
 
 # The products of the LM loop; a batch of one takes the unbatched kernels, so
 # one frame's solve rounds as the unbatched code does (utils/batch.py).
@@ -199,7 +200,8 @@ def _lm_loop(system, T_init: torch.Tensor, max_iters: int, cfg: TrackerConfig,
         iters = iters + active.to(torch.int32)
         active = active & act
         it += 1
-        going = bool(active.any())
+        with span("read.lm_active"):
+            going = bool(active.any())
     return current, failed, LevelStats(iters, err_first, err_final)
 
 
@@ -239,10 +241,11 @@ def solve_pose(pyr_kf: Sequence[torch.Tensor], dpyr_kf: Sequence[torch.Tensor],
     T = _initial_pose(pyr_cur, T_init)
     if pyr_cur[0].dim() == 2:
         return lane(solve_pose(*batch_of_one((pyr_kf, dpyr_kf, pyr_cur)), cam, cfg, T[None]), 0)
-    return _coarse_to_fine(
-        lambda l, cam_l, T_, iters, tol: _solve_level(pyr_kf[l], dpyr_kf[l], pyr_cur[l], cam_l,
-                                                       T_, iters, cfg, tol),
-        cfg, cam, T)
+    with span("tracker.solve"):
+        return _coarse_to_fine(
+            lambda l, cam_l, T_, iters, tol: _solve_level(pyr_kf[l], dpyr_kf[l], pyr_cur[l],
+                                                           cam_l, T_, iters, cfg, tol),
+            cfg, cam, T)
 
 
 def solve_pose_points(kf_levels: Tuple[KeyframeLevel, ...], pyr_cur: Sequence[torch.Tensor],
@@ -255,7 +258,8 @@ def solve_pose_points(kf_levels: Tuple[KeyframeLevel, ...], pyr_cur: Sequence[to
     if pyr_cur[0].dim() == 2:
         return lane(solve_pose_points(*batch_of_one((kf_levels, pyr_cur)), cam, cfg, T[None]),
                     0)
-    return _coarse_to_fine(
-        lambda l, cam_l, T_, iters, tol: _solve_level_points(kf_levels[l], pyr_cur[l], cam_l, T_,
-                                                              iters, cfg, tol),
-        cfg, cam, T)
+    with span("tracker.solve"):
+        return _coarse_to_fine(
+            lambda l, cam_l, T_, iters, tol: _solve_level_points(kf_levels[l], pyr_cur[l],
+                                                                  cam_l, T_, iters, cfg, tol),
+            cfg, cam, T)

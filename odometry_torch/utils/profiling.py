@@ -1,8 +1,12 @@
-"""Per-stage timing, device traces and the card's timing primitives (port of
-``utils/profiling.py``, plus the timers of ``tools/microbench.py``).
+"""Per-stage timing, spans, device traces and the card's timing primitives
+(port of ``utils/profiling.py``, plus the timers of ``tools/microbench.py``).
 
-:class:`StageTimer` accumulates wall-clock spans per stage, as the
-reference's does; :func:`device_trace` records a ``torch.profiler`` trace
+:func:`span` marks a layer of the program (``sweep.batched_step``,
+``tracker.solve``, ``read.lm_active``, ...) as one host event of an active
+``torch.profiler`` session, on the clock of the card's kernel and copy
+events; with no session it does nothing. :class:`StageTimer` accumulates
+wall-clock spans per stage, as the reference's does, each also a
+:func:`span`; :func:`device_trace` records a ``torch.profiler`` trace
 (the reference's ``jax.profiler`` trace) and :func:`trace_summary` reads the
 numbers PERF.md keeps from one: the traced window, the device's busy time
 (the union of its kernel intervals) and idle share, its kernel launches and
@@ -35,6 +39,7 @@ from typing import Dict
 
 import torch
 from torch.autograd import DeviceType
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -66,8 +71,29 @@ def synchronize(result) -> None:
             torch.cuda.synchronize(dev)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking its block as the span `name` in an active
+    ``torch.profiler`` session: one host event, with the block's operators
+    nested in it, on the profiler's clock (that of the card's kernels and
+    copies). With no session active it is one shared context that does
+    nothing: the cost is one read of torch's profiler-enabled flag.
+
+    The span is recorded at the scope of an operator, not as a user
+    annotation (``torch.profiler.record_function``): a user annotation is
+    mirrored on the card's timeline as an event spanning the kernels
+    launched inside it, which readers of the card's events would count as
+    busy device time."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 class StageTimer:
-    """Accumulates wall-clock spans per stage.
+    """Accumulates wall-clock spans per stage; under ``torch.profiler`` each
+    stage is also a :func:`span` of the same name.
 
     On a CUDA device a span covers the device work only if it waits for it:
     pass the block's `result` to :meth:`stage`, or end the block in a host
@@ -84,9 +110,10 @@ class StageTimer:
         the block fills in), synchronise on their devices before the span
         closes."""
         t0 = time.perf_counter()
-        yield
-        if result is not None:
-            synchronize(result)
+        with span(name):
+            yield
+            if result is not None:
+                synchronize(result)
         self.totals[name] += time.perf_counter() - t0
         self.counts[name] += 1
 
