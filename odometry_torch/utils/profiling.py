@@ -289,9 +289,11 @@ def device_ms(fn, reps: int, cards: list | None = None) -> float:
 
 def capture(fn, reps: int = 1):
     """`reps` chained calls of `fn` captured in one ``torch.cuda.CUDAGraph``
-    after a warm-up on a side stream. Returns (graph, the last call's
-    result); each replay rewrites that result in place. `fn` must neither
-    read the host nor copy from it: the capture then raises."""
+    after a warm-up on a side stream of the current card, which the capture
+    runs on too (``torch.cuda.graph``'s own stream is made once, on the
+    first card that captures). Returns (graph, the last call's result); each
+    replay rewrites that result in place. `fn` must neither read the host
+    nor copy from it: the capture then raises."""
     _require_card("capture")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -300,7 +302,7 @@ def capture(fn, reps: int = 1):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             out = fn()
     return graph, out

@@ -757,6 +757,124 @@ def test_graph_replay_of_the_lm_body_is_eager_bit_for_bit(card, interp):
     assert graph_ms(body, reps=5, replays=2) > 0
 
 
+@pytest.fixture
+def lm_graphs(card, monkeypatch):
+    """The tracker module with an empty graph cache, and `eager(fn)`: `fn()`
+    with every LM iteration dispatched instead of replayed."""
+    from odometry_torch.tracking import tracker as tt
+
+    monkeypatch.setattr(tt, "_GRAPHS", {})
+
+    def eager(fn):
+        with monkeypatch.context() as m:
+            m.setattr(tt, "_graphed", lambda *a: False)
+            return fn()
+
+    return tt, eager
+
+
+def _counts(tt):
+    return tt.LM_ITERS, tt.GRAPH_ITERS, tt.GRAPH_CAPTURES
+
+
+def _cached(tt):
+    return sum(len(cache) for cache in tt._GRAPHS.values())
+
+
+@pytest.mark.parametrize("engine", ["floor", "bilinear", "mm", "dense"])
+def test_lm_graph_replays_the_eager_loop_bit_for_bit(lm_graphs, card, engine):
+    """Three lanes at 96x320 through the captured LM iteration give the
+    dispatched loop's poses, flags and LevelStats bit for bit; the counters
+    count every iteration as replayed and one capture per level. A second
+    solve with another batch size captures anew, one with other keyframes
+    of the same shapes replays the same graphs, and both equal the eager
+    loop; tensors returned earlier are not touched by later replays."""
+    from torch_tracker_inputs import TRACK_CFGS, leaves, solve, tracker_batch
+
+    tt, eager = lm_graphs
+    cfg = TRACK_CFGS[engine]()
+    levels = cfg.num_levels
+    first = tracker_batch(3, 96, 320, cfg, card, seed=0)
+    before = _counts(tt)
+    got = solve(first, cfg)
+    lm, graph, captures = (a - b for a, b in zip(_counts(tt), before))
+    assert lm == graph == sum(int(st.iters.max()) for st in got.stats) > levels
+    assert captures == levels and _cached(tt) == levels
+    want = eager(lambda: solve(first, cfg))
+    assert bool(got.ok.all())
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b)
+    kept = [t.clone() for t in leaves(got)]
+
+    other_b = tracker_batch(2, 96, 320, cfg, card, seed=5)
+    other_kf = tracker_batch(3, 96, 320, cfg, card, seed=7)
+    for batch, new_graphs in ((other_b, levels), (other_kf, 0)):
+        c0 = tt.GRAPH_CAPTURES
+        res = solve(batch, cfg)
+        assert tt.GRAPH_CAPTURES - c0 == new_graphs
+        for a, b in zip(leaves(res), leaves(eager(lambda: solve(batch, cfg)))):
+            assert torch.equal(a, b)
+    assert _cached(tt) == 2 * levels
+    for a, b in zip(leaves(got), kept):
+        assert torch.equal(a, b)
+
+
+def test_tdist_runs_the_lm_loop_without_a_graph(lm_graphs, card):
+    """The t-distribution's scale loop reads the host: its iterations are
+    dispatched, counted in LM_ITERS alone."""
+    from torch_tracker_inputs import TRACK_CFGS, solve, tracker_batch
+
+    tt, _ = lm_graphs
+    cfg = TRACK_CFGS["tdist"]()
+    batch = tracker_batch(2, 96, 320, cfg, card)
+    before = _counts(tt)
+    res = solve(batch, cfg)
+    lm, graph, captures = (a - b for a, b in zip(_counts(tt), before))
+    assert lm == sum(int(st.iters.max()) for st in res.stats) > 0
+    assert (graph, captures, _cached(tt)) == (0, 0, 0)
+
+
+def _sweep_captures(devices, ranks):
+    """run_sweep of four sequences of 6 frames over `ranks` ranks of
+    `devices`: the graphs captured up to each frame, from an empty cache,
+    and the LM iterations run and replayed after the first step."""
+    from odometry_torch.distributed.sweep import run_sweep
+    from odometry_torch.tracking import tracker as tt
+
+    cam = Pinhole.create(180.0, 180.0, WS / 2.0, HS / 2.0)
+    scene = make_scene(3, depth=14.0, device="cpu")
+    seqs = [[tuple(a.numpy() for a in render_stereo(scene, cam, 0.537, T, HS, WS)[:2])
+             for T in drive_trajectory(6, step=0.35, seed=seed)] for seed in (4, 5, 11, 12)]
+    captured, iters = [], []
+    progress = lambda i, st, outs, ok: (captured.append(tt.GRAPH_CAPTURES),
+                                        iters.append((tt.LM_ITERS, tt.GRAPH_ITERS)))
+    run_sweep(seqs, CFG, sequence_mesh(ranks, devices), progress=progress)
+    (lm0, graph0), (lm1, graph1) = iters[1], iters[-1]
+    return [c - captured[0] for c in captured], lm1 - lm0, graph1 - graph0
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_sweep_captures_only_on_its_first_step(lm_graphs, card, ranks):
+    """A sweep on one rank of the card, and on four ranks of it, one lane
+    each, stepped in turn: every graph is captured on the first step, one
+    per level, and every later iteration replays."""
+    captured, lm, graph = _sweep_captures(card, ranks)
+    assert captured[1] == CFG.tracker.num_levels
+    assert captured[1:] == [captured[1]] * (len(captured) - 1)
+    assert lm == graph > 0
+
+
+def test_sweep_over_every_card_captures_only_on_its_first_step(lm_graphs, cards):
+    """The sweep over two cards, or four where there are, stepping them in
+    turn: each card captures its levels on the first step and keeps them."""
+    tt, _ = lm_graphs
+    devs = cards(4 if torch.cuda.device_count() >= 4 else 2)
+    captured, lm, graph = _sweep_captures(devs, None)
+    assert captured[1] == CFG.tracker.num_levels * len(devs)
+    assert captured[1:] == [captured[1]] * (len(captured) - 1)
+    assert lm == graph > 0 and len(tt._GRAPHS) == len(devs)
+
+
 def test_device_time_is_at_most_wall_time(card):
     from odometry_torch.tools import microbench
     from odometry_torch.utils.profiling import device_ms, wall_ms
