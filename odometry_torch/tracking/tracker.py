@@ -29,6 +29,12 @@ operators in the same order, so the same bits, with one graph launch where
 the host dispatched some 470 kernels. Each level solve copies its inputs into
 the graph's static tensors. The t-distribution's scale loop reads the host,
 so with ``robust="tdist"``, as on the CPU, every iteration is dispatched.
+
+The dense engine counts its work: the pixels its systems evaluated
+(``DENSE_PX``, on the host), those of them that carried weight (summed on
+the device inside the iteration, :func:`dense_weighted`) and its iterations
+(``DENSE_ITERS``); each dense level solve is the span
+``tracker.dense_level``.
 """
 
 from __future__ import annotations
@@ -68,6 +74,28 @@ _normal_equations_points = one_lane_unbatched(normal_equations_points)
 LM_ITERS = 0
 GRAPH_ITERS = 0
 GRAPH_CAPTURES = 0
+# The dense engine's: the pixels its systems evaluated (B * H_l * W_l an
+# iteration, replayed or dispatched) and its iterations, on the host; the
+# pixels that carried weight (every lane's num_valid), an int64 accumulator
+# a device, added to inside the iteration so that a replay adds too (read
+# with dense_weighted()).
+DENSE_PX = 0
+DENSE_ITERS = 0
+DENSE_WEIGHTED: "dict[torch.device, torch.Tensor]" = {}
+
+
+def _weighted_acc(device: torch.device) -> torch.Tensor:
+    """The dense engine's weighted-pixel accumulator of `device`."""
+    acc = DENSE_WEIGHTED.get(device)
+    if acc is None:
+        acc = DENSE_WEIGHTED[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return acc
+
+
+def dense_weighted() -> int:
+    """The pixels of the dense engine's systems that carried weight, over
+    every device (one host read a device)."""
+    return sum(int(acc) for acc in DENSE_WEIGHTED.values())
 
 
 class LevelStats(NamedTuple):
@@ -122,7 +150,9 @@ def _dense_system(T, inputs, cam_l: Pinhole, cfg: TrackerConfig):
     w = robust_weights(cfg.robust, sys.r, sys.valid, huber_delta=cfg.huber_delta,
                        tdist_dof=cfg.tdist_dof, tdist_sigma_init=cfg.tdist_sigma_init,
                        batch_dims=1)
-    return _normal_equations(sys, w)
+    eqs = _normal_equations(sys, w)
+    _weighted_acc(img_kf.device).add_(eqs.num_valid.sum())
+    return eqs
 
 
 def _points_system(T, inputs, cam_l: Pinhole, cfg: TrackerConfig):
@@ -150,9 +180,17 @@ def _solve_level(img_kf: torch.Tensor, dep_kf: torch.Tensor, img_cur: torch.Tens
                  cam_l: Pinhole, T_init: torch.Tensor, max_iters: int, cfg: TrackerConfig,
                  step_tol: float | None = None):
     """One level of the dense engine for a batch (B, H, W): every pixel of
-    the keyframe level."""
-    return _lm_loop(_dense_system, (img_kf, dep_kf, img_cur), cam_l, T_init, max_iters, cfg,
-                    step_tol)
+    the keyframe level, each iteration counted in ``DENSE_PX`` and
+    ``DENSE_ITERS``. The span ``tracker.dense_level``."""
+    global DENSE_PX, DENSE_ITERS
+    with span("tracker.dense_level"):
+        iters0 = LM_ITERS
+        out = _lm_loop(_dense_system, (img_kf, dep_kf, img_cur), cam_l, T_init, max_iters,
+                       cfg, step_tol)
+        iters = LM_ITERS - iters0
+        DENSE_ITERS += iters
+        DENSE_PX += iters * img_kf.numel()
+        return out
 
 
 def _solve_level_points(kf_level: KeyframeLevel, img_cur: torch.Tensor, cam_l: Pinhole,
@@ -257,11 +295,15 @@ class _LMGraph:
                      _lm_step(system, self.inputs, cam_l, self.carry, cfg, step_tol))
 
         # The capture's warm-up runs on these inputs and advances the carry,
-        # which every solve loads afresh (_lm_graph).
+        # which every solve loads afresh (_lm_graph); its iterations are not
+        # the loop's, so the weighted-pixel count is put back after it.
         self.load(inputs, T_init, cfg)
         self.device = T_init.device
+        weighted = _weighted_acc(self.device)
+        kept = weighted.clone()
         with torch.cuda.device(self.device):
             self.graph, _ = capture(advance)
+        weighted.copy_(kept)
         GRAPH_CAPTURES += 1
 
     def load(self, inputs, T_init: torch.Tensor, cfg: TrackerConfig) -> None:

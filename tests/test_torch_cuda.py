@@ -819,6 +819,51 @@ def test_lm_graph_replays_the_eager_loop_bit_for_bit(lm_graphs, card, engine):
         assert torch.equal(a, b)
 
 
+def test_dense_lm_graph_at_kitti_size_replays_the_eager_loop_bit_for_bit(lm_graphs, card,
+                                                                         monkeypatch):
+    """The dense engine at 376x1241 with 4 lanes: every pixel of each level
+    through the captured iteration gives the dispatched loop's poses, flags
+    and LevelStats bit for bit, and the same dense counters (the weighted
+    pixels summed on the card inside the replay; the capture's warm-up not
+    counted). Prints each level's graph pool: the card's reserved memory
+    that its capture kept."""
+    from torch_tracker_inputs import TRACK_CFGS, leaves, solve, tracker_batch
+
+    tt, eager = lm_graphs
+    cfg = TRACK_CFGS["dense"]()
+    batch = tracker_batch(4, 376, 1241, cfg, card, seed=0)
+    pools, capture = [], tt.capture
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        out = capture(fn)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pools.append(torch.cuda.memory_reserved() - r0)
+        return out
+
+    monkeypatch.setattr(tt, "capture", measured)
+
+    def counted(fn):
+        before = (tt.DENSE_PX, tt.DENSE_ITERS, tt.dense_weighted(), tt.GRAPH_ITERS)
+        res = fn()
+        after = (tt.DENSE_PX, tt.DENSE_ITERS, tt.dense_weighted(), tt.GRAPH_ITERS)
+        return res, [a - b for a, b in zip(after, before)]
+
+    got, n_got = counted(lambda: solve(batch, cfg))
+    want, n_want = counted(lambda: eager(lambda: solve(batch, cfg)))
+    assert len(pools) == cfg.num_levels
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b)
+    assert n_got[:3] == n_want[:3] and n_got[1] == n_got[3] > 0 and n_want[3] == 0
+    assert 0 < n_got[2] < n_got[0]
+    sizes = [tuple(p.shape) for p in reversed(batch["pyr_kf"])]
+    print("dense graph pools (level shape, MiB), coarsest first:",
+          [(s, round(p / 2**20, 1)) for s, p in zip(sizes, pools)])
+
+
 def test_tdist_runs_the_lm_loop_without_a_graph(lm_graphs, card):
     """The t-distribution's scale loop reads the host: its iterations are
     dispatched, counted in LM_ITERS alone."""
